@@ -1,0 +1,481 @@
+"""Drive the PyTorch port's predict path once on an NVIDIA card.
+
+Usage (from the repository root, one CUDA card):
+
+    python3 chip_smoke.py [--profile]
+
+Phases, in order; any failure raises and exits non-zero:
+
+1. card: torch and CUDA versions, the card's name and power limit;
+2. build: every CUDA kernel of the port from ``openpifpaf_tpu_torch/csrc``;
+3. kernels: each kernel against its plain PyTorch version on the card at
+   the bench shape, on dense and sparse synthetic cells, with timings (CUDA
+   events) and its bound;
+4. golden decode: ``tests/fixtures/golden_toykp_fields.npz`` decoded on the
+   card, held against ``golden_toykp_poses.json`` and the CPU decode;
+5. serve: ShuffleNetV2K-16 (CIF + CAF heads, seeded random weights, bf16)
+   serves 3 distinct batches of 8 images at 641x641 through ``Predictor``,
+   counting kernel launches and host syncs; two served images' decode
+   (at the budgets) held against the CPU decode of the same fields; then
+   per-image timings;
+6. kernels at the main path's inputs: each kernel against its plain version
+   and timed on the very tensors the serve phase handed it;
+7. with ``--profile``: one served batch under ``torch.profiler``, the
+   device's busy share and the ops that take its time;
+8. a ``{"kernels": [...]}`` line, the card's name and power limit, then the
+   last line ``{"ok": true, "device": {...}}``.
+
+It imports only the port, torch and numpy.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+FIXTURES = os.path.join(REPO, 'tests', 'fixtures')
+
+# the card's published rates (H100 SXM data sheet): HBM bandwidth and f32
+# rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def phase(name: str) -> None:
+    print(f'== {name}', flush=True)
+
+
+def cuda_ms(fn, repeats: int = 10, warmup: int = 2):
+    """Median, min and max of ``repeats`` timed calls (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), float(min(times)), float(max(times))
+
+
+# ---------------------------------------------------------------- kernels
+def splat_inputs(kind: str, rng, *, b=8, f=17, h=41, w=41, stride=16,
+                 device='cuda'):
+    """(v, x, y, sigma), each (B, F, N), as ``cif_hr.accumulate`` hands
+    them to the kernel at 641 px.  ``dense``: every cell above threshold,
+    like an untrained head; ``sparse``: a few painted people per field,
+    like a trained head."""
+    jj, ii = np.mgrid[0:h, 0:w].astype(np.float32)
+    if kind == 'dense':
+        conf = rng.uniform(0.15, 0.9, (b, f, h, w))
+        x = (ii + rng.normal(0, 0.5, (b, f, h, w))) * stride
+        y = (jj + rng.normal(0, 0.5, (b, f, h, w))) * stride
+        scale = np.log1p(np.exp(rng.normal(0, 1, (b, f, h, w)))) * stride
+    else:
+        conf = np.full((b, f, h, w), 0.02)
+        x = ii * stride + np.zeros((b, f, h, w))
+        y = jj * stride + np.zeros((b, f, h, w))
+        scale = np.full((b, f, h, w), 30.0)
+        for bi in range(b):
+            for fi in range(f):
+                for _ in range(6):
+                    cx, cy = rng.uniform(2, w - 3), rng.uniform(2, h - 3)
+                    i0, j0 = int(cx) - 1, int(cy) - 1
+                    s = rng.uniform(10, 80)
+                    sl = (bi, fi, slice(j0, j0 + 4), slice(i0, i0 + 4))
+                    conf[sl] = rng.uniform(0.4, 1.0, (4, 4))
+                    x[sl] = (cx + rng.normal(0, 0.1, (4, 4))) * stride
+                    y[sl] = (cy + rng.normal(0, 0.1, (4, 4))) * stride
+                    scale[sl] = s
+    v = np.where(conf > 0.1, conf / 16.0, 0.0)
+    sigma = np.maximum(2.0, 0.5 * scale)
+    return tuple(torch.tensor(a.reshape(b, f, h * w), dtype=torch.float32,
+                              device=device) for a in (v, x, y, sigma))
+
+
+def splat_bound_ms(v, x, y, sigma, *, out_hw, spacing, truncate,
+                   y_offset_px=0.0, clip=True):
+    """The least time the card could take for this splat: bytes (each input
+    read once, the output written once) over HBM bandwidth, against the
+    f32 multiply-adds this data needs (each kept cell's window, rows times
+    columns inside the grid) over the f32 rate.  ``clip`` does not change
+    the count."""
+    hh, wh = out_hw
+    n_bytes = 4 * (4 * v.numel() + v.shape[0] * v.shape[1] * hh * wh)
+    t = truncate * sigma
+
+    def extent(c, off, size):
+        lo = torch.clamp(torch.ceil((c - t - off) / spacing), 0, size - 1)
+        hi = torch.clamp(torch.floor((c + t - off) / spacing), 0, size - 1)
+        inside = (c + t - off >= 0) & (c - t - off <= (size - 1) * spacing)
+        return torch.where(inside & (hi >= lo), hi - lo + 1, 0.0)
+
+    rows = extent(y, y_offset_px, hh)
+    cols = extent(x, 0.0, wh)
+    ops = float((2.0 * rows * cols * (v != 0)).sum())
+    bytes_s = n_bytes / HBM_BYTES_PER_S
+    ops_s = ops / F32_OPS_PER_S
+    return (1e3 * max(bytes_s, ops_s), 'bytes' if bytes_s >= ops_s
+            else 'operations', n_bytes, ops)
+
+
+def measure_cif_hr(cif_hr, name: str, inputs, kw) -> dict:
+    """K1 against its plain version on ``inputs``, then both timed."""
+    got = cif_hr.cif_hr_accumulate(*inputs, **kw)
+    want = cif_hr.accumulate_plain(*inputs, **kw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    print(f'cif_hr {name}: shape {tuple(got.shape)} max|kernel - plain| '
+          f'{err:.3e} (limit 2e-5), max value {float(want.max()):.4f}',
+          flush=True)
+    if not err <= 2e-5:
+        raise AssertionError(f'cif_hr kernel disagrees ({name}): {err}')
+    ms = cuda_ms(lambda: cif_hr.cif_hr_accumulate(*inputs, **kw))
+    plain = cuda_ms(lambda: cif_hr.accumulate_plain(*inputs, **kw))
+    bound, bound_by, n_bytes, ops = splat_bound_ms(*inputs, **kw)
+    b, f, n = inputs[0].shape
+    hh, wh = kw['out_hw']
+    print(f'cif_hr {name} [B={b} F={f} N={n} {hh}x{wh}]: kernel median '
+          f'{ms[0]:.4f} ms [min {ms[1]:.4f}, max {ms[2]:.4f}], plain '
+          f'{plain[0]:.4f} ms [min {plain[1]:.4f}, max {plain[2]:.4f}], '
+          f'bound {bound:.4f} ms by {bound_by} ({n_bytes} B, '
+          f'{ops:.4g} f32 ops, {int((inputs[0] != 0).sum())} cells kept), '
+          f'no single PyTorch call computes it', flush=True)
+    return dict(ms=ms[0], plain_ms=plain[0], bound_ms=bound,
+                bound_by=bound_by, max_abs_err=err)
+
+
+def check_cif_hr(cif_hr) -> dict:
+    """K1 against its plain version on the card at the bench shape."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    kw = dict(out_hw=(321, 321), spacing=2.0, truncate=1.0)
+    result = {kind: measure_cif_hr(cif_hr, kind, splat_inputs(kind, rng), kw)
+              for kind in ('dense', 'sparse')}
+    max_err = max(r['max_abs_err'] for r in result.values())
+
+    # all cells masked: exact zeros
+    v, x, y, sigma = splat_inputs('dense', rng)
+    zeros = cif_hr.cif_hr_accumulate(torch.zeros_like(v), x, y, sigma, **kw)
+    if int(torch.count_nonzero(zeros)) != 0:
+        raise AssertionError('cif_hr kernel: all-masked input is not zero')
+    # a band of rows, unclipped
+    band = dict(out_hw=(64, 321), spacing=2.0, truncate=1.0,
+                y_offset_px=100.0, clip=False)
+    heavy = (v * 4.0, x, y, sigma * 3.0)
+    got = cif_hr.cif_hr_accumulate(*heavy, **band)
+    want = cif_hr.accumulate_plain(*heavy, **band)
+    torch.cuda.synchronize()
+    err = float(((got - want).abs() / (1.0 + want.abs())).max())
+    print(f'cif_hr band y_offset=100 clip=False: max value '
+          f'{float(want.max()):.3f}, max|kernel - plain|/(1+|plain|) '
+          f'{err:.3e} (limit 2e-5)', flush=True)
+    if not err <= 2e-5 or float(want.max()) <= 1.0:
+        raise AssertionError(f'cif_hr kernel band case: {err}')
+    result['max_abs_err'] = max_err
+    return result
+
+
+# ----------------------------------------------------------- golden decode
+def coco_metas(headmeta, constants):
+    cif = headmeta.Cif('cif', 'toykp', keypoints=constants.COCO_KEYPOINTS,
+                       sigmas=constants.COCO_PERSON_SIGMAS,
+                       score_weights=constants.COCO_PERSON_SCORE_WEIGHTS)
+    caf = headmeta.Caf('caf', 'toykp', keypoints=constants.COCO_KEYPOINTS,
+                       sigmas=constants.COCO_PERSON_SIGMAS,
+                       skeleton=constants.COCO_PERSON_SKELETON)
+    return cif, caf
+
+
+def check_golden_decode(port) -> None:
+    fields = np.load(os.path.join(FIXTURES, 'golden_toykp_fields.npz'))
+    with open(os.path.join(FIXTURES, 'golden_toykp_poses.json')) as f:
+        golden = json.load(f)
+    cif_meta, caf_meta = coco_metas(port.headmeta, port.constants)
+    cif_meta.head_index, caf_meta.head_index = 0, 1
+    cif_meta.base_stride = caf_meta.base_stride = 16
+    decoder = port.decoder.CifCaf(cif_meta, caf_meta, device='cuda')
+    fields_cuda = [torch.as_tensor(fields['cif'], device='cuda'),
+                   torch.as_tensor(fields['caf'], device='cuda')]
+    launches = port.cif_hr.KERNEL_LAUNCHES
+    anns = decoder.batch_fields(fields_cuda)
+    if port.cif_hr.KERNEL_LAUNCHES != launches + 1:
+        raise AssertionError('golden decode on the card did not launch K1')
+    # tests/test_golden.py's tolerances: score 0.01, xy 1 px, v 0.02
+    for i, want_poses in enumerate(golden['poses']):
+        got = sorted(anns[i], key=lambda a: -a.score)
+        if len(got) != len(want_poses):
+            raise AssertionError(f'golden image {i}: {len(got)} poses, '
+                                 f'want {len(want_poses)}')
+        for ann, want in zip(got, want_poses):
+            want_xyv = np.asarray(want['xyv'], np.float32)
+            vis = want_xyv[:, 2] > 0
+            ok = (abs(ann.score - want['score']) < 0.01
+                  and np.array_equal(ann.data[:, 2] > 0, vis)
+                  and np.abs(ann.data[vis, :2] - want_xyv[vis, :2]).max() <= 1.0
+                  and np.abs(ann.data[vis, 2] - want_xyv[vis, 2]).max() <= 0.02)
+            if not ok:
+                raise AssertionError(f'golden image {i}: pose differs')
+
+    print(f'golden decode: {sum(len(a) for a in anns)} poses in 4 images '
+          f'match golden_toykp_poses.json', flush=True)
+    hold_card_to_cpu(port, decoder, decoder.batch_decoded(fields_cuda),
+                     fields_cuda, 'golden decode')
+
+
+def hold_card_to_cpu(port, decoder, on_card, fields_cuda, label) -> None:
+    """The card's decode of ``fields_cuda`` against the port's CPU decode of
+    the same fields, with the configuration the card ran (f32 profiles,
+    ``profile_bf16=False``): the same valid set and overflow counters, xyv
+    within 1e-3 and scores within 1e-4 — the CPU parity tolerances against
+    JAX."""
+    h, w = fields_cuda[0].shape[-2:]
+    stride = decoder.cif_meta.stride
+    config = decoder.config_for(((h - 1) * stride + 1, (w - 1) * stride + 1))
+    if config.cifhr.profile_bf16:
+        raise AssertionError('the card decode must run f32 profiles')
+    on_cpu = port.ops.make_batch_decoder(
+        cif_meta=decoder.cif_meta, caf_meta=decoder.caf_meta, config=config,
+        device='cpu')(*[f.cpu() for f in fields_cuda])
+    card_np = [t.cpu().numpy() for t in on_card]
+    cpu_np = [t.numpy() for t in on_cpu]
+    valid_c, valid_h = card_np[3], cpu_np[3]
+    same_valid = np.array_equal(valid_c, valid_h)
+    both = valid_c & valid_h
+    dxyv = float(np.abs(card_np[0] - cpu_np[0])[both].max(initial=0.0))
+    dscore = float(np.abs(card_np[2] - cpu_np[2])[both].max(initial=0.0))
+    counters = [np.asarray(a).tolist() for a in card_np[4:]]
+    same_counters = all(np.array_equal(a, b)
+                        for a, b in zip(card_np[4:], cpu_np[4:]))
+    print(f'{label}, card vs CPU decode of {valid_h.shape[0]} images: '
+          f'valid poses {valid_c.sum(1).tolist()} card, '
+          f'{valid_h.sum(1).tolist()} CPU; max|dxyv| {dxyv:.3e} (limit '
+          f'1e-3), max|dscore| {dscore:.3e} (limit 1e-4); overflow counters '
+          f'(caf, cif, poses) card {counters}, equal: {same_counters}',
+          flush=True)
+    if not (same_valid and same_counters and dxyv <= 1e-3
+            and dscore <= 1e-4):
+        raise AssertionError(f'{label}: card and CPU decodes differ')
+
+
+# ------------------------------------------------------------------ serve
+def serve(port, card: str) -> dict:
+    from openpifpaf_tpu_torch.predictor import Predictor
+
+    metas = list(coco_metas(port.headmeta, port.constants))
+    torch.backends.cudnn.benchmark = True
+    predictor = Predictor(base_name='shufflenetv2k16', head_metas=metas,
+                          device='cuda', bf16=True, seed=0)
+    predictor.batch_size = 8
+    torch.cuda.reset_peak_memory_stats()
+    # Seeded random weights give fields without detections (confidence
+    # ~0.5, scale ~0.7 cells), and the decode would stop after the seeds.
+    # Shifting the heads' confidence and scale biases makes every cell a
+    # detection, so seeds, CAF scoring, growth and NMS all run at their
+    # budgets: the heaviest decode the path has.
+    with torch.no_grad():
+        for head, meta in zip(predictor.model.module.head_nets, metas):
+            bias = head.conv.bias.view(meta.n_fields, meta.n_components)
+            bias[:, 0] = 2.0
+            bias[:, meta.n_components - meta.n_scales:] = 3.0
+    rng = np.random.default_rng(1)
+    batches = [[rng.integers(0, 256, (641, 641, 3), dtype=np.uint8)
+                for _ in range(8)] for _ in range(3)]
+
+    # the fields of the first batch: finite, of the expected shapes
+    x, _ = predictor.preprocess(batches[0])
+    fields = predictor.model(x)
+    shapes = [tuple(f.shape) for f in fields]
+    if shapes != [(8, 17, 5, 41, 41), (8, 19, 9, 41, 41)]:
+        raise AssertionError(f'field shapes {shapes}')
+    if not all(bool(torch.isfinite(f).all()) for f in fields):
+        raise AssertionError('non-finite fields')
+
+    # warm-up, keeping what the main path hands K1 for its timing below
+    captured = []
+    launch = port.cif_hr.cif_hr_accumulate
+
+    def spy(*args, **kwargs):
+        captured.append(([a.clone() for a in args], dict(kwargs)))
+        return launch(*args, **kwargs)
+
+    port.cif_hr.cif_hr_accumulate = spy
+    try:
+        predictor.batch(batches[0])
+    finally:
+        port.cif_hr.cif_hr_accumulate = launch
+    if len(captured) != 1:
+        raise AssertionError(f'one batch launched K1 {len(captured)} times')
+
+    # the main path: counts to 0, three distinct batches, counts read; the
+    # decoder's fields and results are kept to check the decode below
+    decoded = []
+    batch_decoded = predictor.decoder.batch_decoded
+
+    def keep(fields):
+        out = batch_decoded(fields)
+        decoded.append((fields, out))
+        return out
+
+    predictor.decoder.batch_decoded = keep
+    port.cif_hr.KERNEL_LAUNCHES = 0
+    port.common.HOST_SYNCS = 0
+    try:
+        results = [predictor.batch(images) for images in batches]
+    finally:
+        del predictor.decoder.batch_decoded
+    launches = port.cif_hr.KERNEL_LAUNCHES
+    syncs = port.common.HOST_SYNCS
+    n_anns = [len(preds) for res in results for preds, _ in res]
+    for res in results:
+        for preds, _ in res:
+            for ann in preds:
+                if not np.isfinite(ann.data).all():
+                    raise AssertionError('non-finite annotation')
+    print(f'serve: 3 batches of 8 at 641x641, annotations per image '
+          f'{n_anns}; cif_hr launches {launches}, host syncs {syncs} '
+          f'({syncs / 3:.1f} per batch)', flush=True)
+    if launches < 3:
+        raise AssertionError(f'main path launched cif_hr {launches} times')
+    # the decode at its budgets, held to the CPU decode on two served images
+    fields, on_card = decoded[0]
+    hold_card_to_cpu(port, predictor.decoder, [t[:2] for t in on_card],
+                     [f[:2] for f in fields], 'served batch')
+
+    # timings: chained calls, each waits for the last (batch() syncs)
+    e2e, fwd, dec = [], [], []
+    for i in range(12):
+        start = time.perf_counter()
+        predictor.batch(batches[i % 3])
+        e2e.append((time.perf_counter() - start) * 1e3 / 8)
+        fwd.append(predictor.last_nn_time * 1e3 / 8)
+        dec.append(predictor.last_decoder_time * 1e3 / 8)
+
+    def stat(xs):
+        return f'{np.median(xs):.3f} [{min(xs):.3f}, {max(xs):.3f}]'
+
+    print(f'serve per-image ms, median [min, max] of 12 chained batches of '
+          f'8: end to end {stat(e2e)}, forward {stat(fwd)}, decode '
+          f'{stat(dec)}; peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})',
+          flush=True)
+    return dict(launches=launches, host_syncs_per_batch=syncs / 3,
+                cif_hr_inputs=captured[0], predictor=predictor,
+                images=batches[0])
+
+
+def profile_batch(predictor, images) -> None:
+    """One served batch under ``torch.profiler``: wall time, the device's
+    busy share (the sum of its kernels' times; one stream, so they do not
+    overlap) and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        predictor.batch(images)
+        wall_ms = (time.perf_counter() - start) * 1e3
+
+    def device_us(event):
+        return getattr(event, 'self_device_time_total',
+                       getattr(event, 'self_cuda_time_total', 0.0))
+
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith('CUDA')]
+    busy_ms = sum(device_us(e) for e in kernels) / 1e3
+    print(f'profile: one batch of {len(images)}, wall {wall_ms:.3f} ms, '
+          f'device busy '
+          f'{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%, idle '
+          f'{100 - 100 * busy_ms / wall_ms:.1f}%), '
+          f'{sum(e.count for e in kernels)} kernel launches', flush=True)
+    for e in sorted(kernels, key=device_us, reverse=True)[:12]:
+        print(f'  {device_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}',
+              flush=True)
+
+
+class _Port:
+    """The port's modules, imported after the card check."""
+
+    def __init__(self):
+        from openpifpaf_tpu_torch import decoder, headmeta, kernels, ops
+        from openpifpaf_tpu_torch.ops import cif_hr, common
+        from openpifpaf_tpu_torch.plugins.coco import constants
+        self.decoder, self.headmeta, self.kernels, self.ops = \
+            decoder, headmeta, kernels, ops
+        self.cif_hr, self.common, self.constants = cif_hr, common, constants
+
+
+def main() -> int:
+    phase('card')
+    print(f'torch {torch.__version__} cuda {torch.version.cuda}', flush=True)
+    if not torch.cuda.is_available():
+        raise RuntimeError('CUDA is not available: chip_smoke.py needs a card')
+    card = card_line()
+    print(card, flush=True)
+    port = _Port()
+
+    phase('build')
+    start = time.perf_counter()
+    log = port.kernels.build('cif_hr')
+    print(f'built csrc/cif_hr.cu in {time.perf_counter() - start:.2f} s',
+          flush=True)
+    for line in log.splitlines():
+        if 'registers' in line or 'spill' in line or 'smem' in line:
+            print(f'  cif_hr: {line.strip()}', flush=True)
+
+    phase('kernels against plain versions')
+    k1 = check_cif_hr(port.cif_hr)
+
+    phase('golden decode')
+    check_golden_decode(port)
+
+    phase('serve')
+    served = serve(port, card)
+
+    phase("kernels at the main path's inputs")
+    args, kwargs = served['cif_hr_inputs']
+    main = measure_cif_hr(port.cif_hr, 'served batch', args, kwargs)
+    max_err = max(k1['max_abs_err'], main['max_abs_err'])
+
+    if '--profile' in sys.argv[1:]:
+        phase('profile')
+        profile_batch(served['predictor'], served['images'])
+
+    print(json.dumps({'kernels': [{
+        'name': 'cif_hr_accumulate', 'route': 'cuda',
+        'source': 'openpifpaf_tpu_torch/csrc/cif_hr.cu',
+        'replaces': 'openpifpaf_tpu/ops/pallas_cif_hr.py:68',
+        'function': 'accumulate_pallas',
+        'launches': served['launches'],
+        'max_abs_err': max_err, 'max_abs_diff': max_err,
+        'ms': main['ms'], 'plain_ms': main['plain_ms'],
+        'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
+        'library_ms': None}]}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

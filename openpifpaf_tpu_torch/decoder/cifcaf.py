@@ -1,0 +1,140 @@
+"""CifCaf decoder wrapper: batched decode -> Annotation objects.
+
+Port of ``openpifpaf_tpu/decoder/cifcaf.py``.  Reference parity:
+``src/openpifpaf/decoder/cifcaf.py:~40``.  The class-level thresholds are
+the JAX package's defaults (``cifcaf.py:28-46``); ``config_for`` builds the
+same ``CifCafConfig`` as ``cifcaf.py:153-193``.  Force-complete, dense
+connections and the CLI flags are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from .decoder import Decoder
+from .. import headmeta
+from ..annotation import Annotation
+from ..device import resolve_device
+from ..ops import CifCafConfig, make_batch_decoder
+from ..ops import caf_scored, cif_hr, growth, nms, seeds
+
+
+class CifCaf(Decoder):
+    # class-level configuration (reference static thresholds)
+    seed_threshold = 0.2
+    keypoint_threshold = 0.15
+    keypoint_threshold_rel = 0.5
+    instance_threshold = 0.15
+    caf_score_th = 0.2
+    cif_hr_v_threshold = 0.1
+    force_complete = False
+    reverse_match = True
+    connection_blend = True
+    dense_connections = 0.0
+    max_poses = 96
+    max_seeds = 512
+    max_caf_candidates = 256
+    cif_hr_max_active = 1024
+    hr_spacing = 2
+
+    def __init__(self, cif_meta: headmeta.Cif, caf_meta: headmeta.Caf,
+                 dense_caf_meta: headmeta.Caf = None, *, device=None):
+        if self.force_complete:
+            raise NotImplementedError('force-complete decoding is not '
+                                      'ported yet')
+        if dense_caf_meta is not None and self.dense_connections:
+            raise NotImplementedError('dense connections are not ported yet')
+        self.cif_meta = cif_meta
+        self.caf_meta = caf_meta
+        self.device = resolve_device(device)
+        self._decoders = {}  # image_hw -> batched decode
+
+    @classmethod
+    def match(cls, head_metas) -> bool:
+        return (len(head_metas) >= 2
+                and isinstance(head_metas[0], headmeta.Cif)
+                and isinstance(head_metas[1], headmeta.Caf))
+
+    @classmethod
+    def factory(cls, head_metas, *, device=None) -> List['CifCaf']:
+        if not cls.match(head_metas):
+            return []
+        return [cls(head_metas[0], head_metas[1], device=device)]
+
+    def config_for(self, image_hw: Tuple[int, int]) -> CifCafConfig:
+        """The decode configuration; on the card the CifHr profiles are
+        f32 (the kernel's), on the CPU bf16-rounded as in the JAX default."""
+        return CifCafConfig(
+            stride=self.cif_meta.stride,
+            image_hw=tuple(image_hw),
+            cifhr=cif_hr.CifHrConfig(
+                v_threshold=self.cif_hr_v_threshold,
+                spacing=self.hr_spacing,
+                min_scale=self.cif_meta.decoder_min_scale,
+                max_active=self.cif_hr_max_active,
+                profile_bf16=self.device.type == 'cpu'),
+            seeds=seeds.SeedsConfig(
+                threshold=self.seed_threshold,
+                max_seeds=self.max_seeds),
+            caf=caf_scored.CafScoredConfig(
+                score_th=self.caf_score_th,
+                max_candidates=self.max_caf_candidates),
+            growth=growth.GrowthConfig(
+                keypoint_threshold=self.keypoint_threshold,
+                keypoint_threshold_rel=self.keypoint_threshold_rel,
+                reverse_match=self.reverse_match,
+                connection_blend=self.connection_blend,
+                max_poses=self.max_poses),
+            nms=nms.NMSConfig(
+                instance_threshold=self.instance_threshold,
+                keypoint_threshold=self.keypoint_threshold),
+        )
+
+    def _decoder_for(self, image_hw: Tuple[int, int]):
+        key = tuple(image_hw)
+        if key not in self._decoders:
+            self._decoders[key] = make_batch_decoder(
+                cif_meta=self.cif_meta, caf_meta=self.caf_meta,
+                config=self.config_for(key), device=self.device)
+        return self._decoders[key]
+
+    def decoded_to_annotations(self, decoded_i) -> List[Annotation]:
+        """Convert one image's numpy DecodedPoses slice to Annotations,
+        in descending score order."""
+        annotations = []
+        for p in np.argsort(-decoded_i.scores):
+            if not decoded_i.valid[p]:
+                continue
+            ann = Annotation(self.cif_meta.keypoints, self.caf_meta.skeleton,
+                             sigmas=self.cif_meta.sigmas,
+                             score_weights=self.cif_meta.score_weights)
+            ann.data[:] = decoded_i.xyv[p]
+            ann.joint_scales[:] = decoded_i.joint_scales[p]
+            ann.fixed_score = float(decoded_i.scores[p])
+            annotations.append(ann)
+        return annotations
+
+    def batch_decoded(self, fields):
+        """Batched decode on the device: ``DecodedPoses`` of tensors."""
+        cif_fields = fields[self.cif_meta.head_index]
+        caf_fields = fields[self.caf_meta.head_index]
+        h, w = cif_fields.shape[-2:]
+        stride = self.cif_meta.stride
+        image_hw = ((h - 1) * stride + 1, (w - 1) * stride + 1)
+        return self._decoder_for(image_hw)(cif_fields, caf_fields)
+
+    def batch_fields(self, fields, metas=None) -> List[List[Annotation]]:
+        decoded = self.batch_decoded(fields)
+        # one device->host transfer for the whole batch, then slice
+        decoded_np = type(decoded)(*[x.cpu().numpy() for x in decoded])
+        return [self.decoded_to_annotations(
+                    type(decoded_np)(*[x[i] for x in decoded_np]))
+                for i in range(decoded_np.valid.shape[0])]
+
+    def __call__(self, fields) -> List[Annotation]:
+        """Decode one image: fields = [cif (F,5,H,W), caf (E,9,H,W)]."""
+        return self.batch_fields(
+            [torch.as_tensor(np.asarray(f))[None] for f in fields])[0]

@@ -1,0 +1,27 @@
+"""Decoder base: batched field decoding.
+
+Port of ``openpifpaf_tpu/decoder/decoder.py``.  Reference parity:
+``src/openpifpaf/decoder/decoder.py``.  Fields stay on the device they were
+computed on; the decode result crosses to the host once per batch.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+
+class Decoder:
+    """Base class for field decoders."""
+
+    @classmethod
+    def match(cls, head_metas) -> bool:
+        """Can this decoder decode the given head metas?"""
+        raise NotImplementedError
+
+    def __call__(self, fields) -> List:
+        """Decode a single image's fields into annotations."""
+        raise NotImplementedError
+
+    def batch_fields(self, fields, metas=None) -> List[List]:
+        """Decode batched field tensors (list of (B, F, C, H, W))."""
+        raise NotImplementedError

@@ -1,0 +1,123 @@
+"""Head metadata: the lingua franca between datasets, networks and decoders.
+
+Reference parity: ``src/openpifpaf/headmeta.py`` — dataclasses ``Cif``
+(``:~20``) and ``Caf`` (``:~60``).  A head meta describes *what* a composite-field head predicts:
+which keypoints/categories, how many confidence/vector/scale components per
+field, the skeleton for association fields, sigmas for OKS-style scoring and
+the feature-map stride.
+
+These objects are pure data; every subsystem (encoders that paint training
+targets, network heads that size their conv channels, decoders that grow
+skeletons, visualizers) reads them.
+
+Port copy of ``openpifpaf_tpu/headmeta.py``: the PyTorch package keeps its
+own copy so that it imports nothing of the JAX package.  It holds the
+metas of the ported CifCaf path only (``CifDet``, ``Tcaf`` and
+``Caf.concatenate`` come with their decoders).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, ClassVar, List, Optional, Tuple
+
+
+@dataclasses.dataclass
+class Base:
+    """Common head metadata.
+
+    :param name: head name, e.g. ``'cif'``; combined with ``dataset`` it
+        uniquely identifies a head (``'cocokp.cif'``).
+    :param dataset: dataset slug, e.g. ``'cocokp'``.
+    """
+
+    name: str
+    dataset: str
+
+    # set by the network factory once the head is attached to a backbone
+    head_index: Optional[int] = dataclasses.field(default=None, compare=False)
+    base_stride: Optional[int] = dataclasses.field(default=None, compare=False)
+    upsample_stride: int = dataclasses.field(default=1, compare=False)
+
+    @property
+    def stride(self) -> int:
+        """Effective output stride of this head (backbone stride / upsample)."""
+        if self.base_stride is None:
+            raise ValueError(f'head meta {self.name}: base_stride not set')
+        return self.base_stride // self.upsample_stride
+
+    # channel layout ----------------------------------------------------
+    @property
+    def n_fields(self) -> int:
+        raise NotImplementedError
+
+    n_confidences: ClassVar[int] = 1
+    n_vectors: ClassVar[int] = 0
+    n_scales: ClassVar[int] = 0
+
+    @property
+    def n_components(self) -> int:
+        """Channels per field: confidences + 3 per vector (x, y, spread b) + scales."""
+        return self.n_confidences + 3 * self.n_vectors + self.n_scales
+
+
+@dataclasses.dataclass
+class Cif(Base):
+    """Composite Intensity Field metadata (keypoint detection).
+
+    Reference: ``headmeta.py:~20``.  Each feature cell predicts, per keypoint
+    type: (confidence, offset x, offset y, spread b, keypoint scale sigma).
+    """
+
+    keypoints: List[str] = None
+    sigmas: List[float] = None
+    pose: Any = None
+    draw_skeleton: Optional[List[Tuple[int, int]]] = None
+    score_weights: Optional[List[float]] = None
+
+    training_weights: Optional[List[float]] = None
+
+    n_confidences: ClassVar[int] = 1
+    n_vectors: ClassVar[int] = 1
+    n_scales: ClassVar[int] = 1
+
+    vector_offsets = [True]
+    decoder_min_scale = 0.0
+    decoder_seed_mask: Optional[List[int]] = None
+
+    @property
+    def n_fields(self) -> int:
+        return len(self.keypoints)
+
+
+@dataclasses.dataclass
+class Caf(Base):
+    """Composite Association Field metadata (skeleton edges).
+
+    Reference: ``headmeta.py:~60``.  Each feature cell predicts, per skeleton
+    edge: (confidence, offset1 x/y, offset2 x/y, spread b1, spread b2,
+    scale1, scale2).
+    """
+
+    keypoints: List[str] = None
+    sigmas: List[float] = None
+    skeleton: List[Tuple[int, int]] = None  # 1-based keypoint indices
+    pose: Any = None
+    sparse_skeleton: Optional[List[Tuple[int, int]]] = None
+    dense_to_sparse_radius: float = 2.0
+    only_in_field_of_view: bool = False
+
+    training_weights: Optional[List[float]] = None
+
+    n_confidences: ClassVar[int] = 1
+    n_vectors: ClassVar[int] = 2
+    n_scales: ClassVar[int] = 2
+
+    vector_offsets = [True, True]
+    decoder_min_distance = 0.0
+    decoder_max_distance = float('inf')
+    decoder_confidence_scales: Optional[List[float]] = None
+
+    @property
+    def n_fields(self) -> int:
+        return len(self.skeleton)

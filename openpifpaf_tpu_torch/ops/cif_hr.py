@@ -1,0 +1,213 @@
+"""CifHr: high-resolution confidence accumulation.
+
+Port of ``openpifpaf_tpu/ops/cif_hr.py``.  Reference parity:
+``src/openpifpaf/csrc/src/decoder/utils/cif_hr.cpp:~20``: every CIF cell
+above ``v_threshold`` splats a truncated Gaussian blob, centred at its
+regressed target and with width proportional to its predicted scale, into a
+high-resolution accumulator clipped at 1.0.  A 2D Gaussian is separable:
+
+    hr[f, Y, X] = clip( sum_c  v_c * gy[c, Y] * gx[c, X], 0, 1 )
+
+On the card the splat runs on the hand-written kernel ``csrc/cif_hr.cu``
+(``cif_hr_accumulate``), which replaces the TPU kernel
+``openpifpaf_tpu/ops/pallas_cif_hr.py::accumulate_pallas``.  Beside it,
+``accumulate_plain`` is the plain PyTorch version — the profiles and an
+``einsum`` over cells, the translation of ``cif_hr.py:138-161``.  The plain
+version serves CPU tensors only; a CUDA tensor launches the kernel or
+raises.  The kernel computes f32 profiles (like the Pallas kernel), so on
+the card the decode has ``profile_bf16=False`` semantics.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from .common import masked_top_k
+from .. import kernels
+
+# launches of the CUDA kernel, counted by its wrapper
+KERNEL_LAUNCHES = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class CifHrConfig:
+    """Static configuration (reference static class attrs, cif_hr.hpp)."""
+
+    v_threshold: float = 0.1     # min cell confidence to splat
+    neighbor_factor: float = 1.0 / 16.0  # 1/(#painted cells per keypoint)
+    min_sigma_px: float = 2.0    # lower bound on blob sigma (one hires cell)
+    sigma_factor: float = 0.5    # sigma = sigma_factor * predicted scale
+    truncate: float = 1.0        # truncate blob at truncate * sigma
+    spacing: int = 2             # hires grid spacing in px
+    min_scale: float = 0.0       # skip cells with predicted scale below this
+    # active-cell compaction: splat only the top ``max_active`` cells per
+    # field (by confidence); engages when H*W > compaction_ratio*max_active
+    max_active: int = 1024
+    compaction_ratio: float = 2.0
+    # applies on the CPU only: the plain version rounds the Gaussian
+    # profiles to bf16 before the f32 contraction, as the JAX einsum path
+    # does by default; the CUDA kernel computes f32 profiles, which is
+    # ``profile_bf16=False`` (``CifCaf.config_for`` sets it so on the card)
+    profile_bf16: bool = True
+
+
+def accumulate(conf: torch.Tensor, x_px: torch.Tensor, y_px: torch.Tensor,
+               scale_px: torch.Tensor, *, out_hw, config: CifHrConfig,
+               extra_mask: torch.Tensor = None, y_offset_px: float = 0.0,
+               clip: bool = True, return_overflow: bool = False):
+    """Accumulate one CIF head into a hires grid.
+
+    :param conf: (B, F, H, W) cell confidences in [0, 1], or (F, H, W)
+    :param x_px, y_px: regressed absolute target positions, px (same shape)
+    :param scale_px: predicted keypoint scale, px (same shape)
+    :param out_hw: (Hh, Wh) hires grid size
+    :param y_offset_px: px offset of the grid's first row (banded decode)
+    :param clip: apply the final clip-to-1.0
+    :param return_overflow: also return the (B,) int32 count of active cells
+        dropped by ``max_active`` compaction
+    :returns: (B, F, Hh, Wh) accumulated confidence (without a leading B
+        when ``conf`` had none)
+    """
+    single = conf.dim() == 3
+    if single:
+        conf, x_px, y_px, scale_px = (t[None] for t in
+                                      (conf, x_px, y_px, scale_px))
+        if extra_mask is not None:
+            extra_mask = extra_mask[None]
+    b, f, h, w = conf.shape
+    n = h * w
+
+    mask = conf > config.v_threshold
+    if config.min_scale > 0.0:
+        mask = mask & (scale_px >= config.min_scale)
+    if extra_mask is not None:
+        mask = mask & extra_mask
+
+    v = torch.where(mask, conf * config.neighbor_factor,
+                    torch.zeros((), device=conf.device)).reshape(b, f, n)
+    x = x_px.reshape(b, f, n)
+    y = y_px.reshape(b, f, n)
+    sigma = torch.clamp(config.sigma_factor * scale_px,
+                        min=config.min_sigma_px).reshape(b, f, n)
+
+    n_dropped = torch.zeros(b, dtype=torch.int32, device=conf.device)
+    if config.max_active and n > config.compaction_ratio * config.max_active:
+        _, idx, valid = masked_top_k(conf.reshape(b, f, n),
+                                     mask.reshape(b, f, n), config.max_active)
+        n_dropped = torch.clamp(mask.reshape(b, -1).sum(1)
+                                - valid.reshape(b, -1).sum(1), min=0).int()
+        v = torch.where(valid, torch.gather(v, 2, idx), 0.0)
+        x = torch.gather(x, 2, idx)
+        y = torch.gather(y, 2, idx)
+        sigma = torch.gather(sigma, 2, idx)
+
+    kw = dict(out_hw=out_hw, spacing=float(config.spacing),
+              truncate=float(config.truncate),
+              y_offset_px=float(y_offset_px), clip=clip)
+    if v.device.type == 'cpu':
+        hr = accumulate_plain(v, x, y, sigma,
+                              profile_bf16=config.profile_bf16, **kw)
+    else:
+        hr = cif_hr_accumulate(v.contiguous(), x.contiguous(), y.contiguous(),
+                               sigma.contiguous(), **kw)
+    if single:
+        hr, n_dropped = hr[0], n_dropped[0]
+    return (hr, n_dropped) if return_overflow else hr
+
+
+def accumulate_plain(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                     sigma: torch.Tensor, *, out_hw, spacing: float,
+                     truncate: float, y_offset_px: float = 0.0,
+                     clip: bool = True,
+                     profile_bf16: bool = False) -> torch.Tensor:
+    """Plain PyTorch splat: (B, F, N) cells -> (B, F, Hh, Wh).
+
+    ``profile_bf16`` rounds ``gy``/``gx`` to bf16 and contracts in f32; a
+    bf16 x bf16 product is exact in f32, so this reproduces JAX's
+    ``preferred_element_type=f32`` contraction up to summation order.
+    """
+    hh, wh = out_hw
+    xs = torch.arange(wh, dtype=torch.float32, device=v.device) * spacing
+    ys = torch.arange(hh, dtype=torch.float32, device=v.device) * spacing \
+        + y_offset_px
+    dx = xs - x[..., None]                                  # (B, F, N, Wh)
+    dy = ys - y[..., None]                                  # (B, F, N, Hh)
+    inv2s2 = (0.5 / (sigma * sigma))[..., None]
+    trunc = (truncate * sigma)[..., None]
+    zero = torch.zeros((), device=v.device)
+    gx = torch.where(dx.abs() <= trunc, torch.exp(-dx * dx * inv2s2), zero)
+    gy = torch.where(dy.abs() <= trunc, torch.exp(-dy * dy * inv2s2), zero)
+    gy = gy * v[..., None]
+    if profile_bf16:
+        gy = gy.bfloat16().float()
+        gx = gx.bfloat16().float()
+    hr = torch.einsum('bfny,bfnx->bfyx', gy, gx)
+    return torch.clamp(hr, 0.0, 1.0) if clip else hr
+
+
+def _check_operand(name: str, t: torch.Tensor, shape) -> None:
+    if t.device.type != 'cuda':
+        raise ValueError(f'cif_hr_accumulate: {name} must be a CUDA tensor, '
+                         f'got {t.device}')
+    if t.dtype != torch.float32:
+        raise ValueError(f'cif_hr_accumulate: {name} must be float32, got '
+                         f'{t.dtype}')
+    if t.dim() != 3 or (shape is not None and t.shape != shape):
+        raise ValueError(f'cif_hr_accumulate: {name} must be (B, F, N) like '
+                         f'v, got {tuple(t.shape)}')
+    if not t.is_contiguous():
+        raise ValueError(f'cif_hr_accumulate: {name} must be contiguous')
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = kernels.library('cif_hr')
+        fn = lib.cif_hr_accumulate_f32
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                       + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def cif_hr_accumulate(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                      sigma: torch.Tensor, *, out_hw, spacing: float,
+                      truncate: float, y_offset_px: float = 0.0,
+                      clip: bool = True) -> torch.Tensor:
+    """The CUDA kernel: (B, F, N) float32 cells -> (B, F, Hh, Wh) float32.
+
+    ``v`` carries the neighbour factor and is 0 for masked cells; ``sigma``
+    is the blob width in px.  Launches on the current stream without
+    synchronizing.
+    """
+    global KERNEL_LAUNCHES
+    _check_operand('v', v, None)
+    for name, t in (('x', x), ('y', y), ('sigma', sigma)):
+        _check_operand(name, t, v.shape)
+        if t.device != v.device:
+            raise ValueError(f'cif_hr_accumulate: {name} on {t.device}, '
+                             f'v on {v.device}')
+    b, f, n = v.shape
+    hh, wh = (int(s) for s in out_hw)
+    if b * f > 65535 or (hh + 31) // 32 > 65535:
+        raise ValueError(f'cif_hr_accumulate: grid too large for '
+                         f'{(b, f, hh, wh)}')
+    out = torch.empty((b, f, hh, wh), dtype=torch.float32, device=v.device)
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().cif_hr_accumulate_f32(
+            v.data_ptr(), x.data_ptr(), y.data_ptr(), sigma.data_ptr(),
+            out.data_ptr(), b * f, n, hh, wh, float(spacing), float(truncate),
+            float(y_offset_px), int(bool(clip)), stream)
+    if rc != 0:
+        raise RuntimeError(f'cif_hr_accumulate: kernel launch failed with '
+                           f'CUDA error {rc}')
+    KERNEL_LAUNCHES += 1
+    return out

@@ -1,0 +1,148 @@
+"""The port's batched CifCaf decode against ``openpifpaf_tpu``'s.
+
+Both decoders see the same fields: the trained-checkpoint fixture
+``tests/fixtures/golden_toykp_fields.npz`` (4 images) and painted scenes
+from ``tests/test_decoder.py::build_fields``.  Required: the same ``valid``
+set, every ``DecodedPoses`` field within ``xyv`` atol 1e-3 and ``scores``
+atol 1e-4 (the frameworks' f32 ``exp``/sums differ in the last ulp), and
+identical overflow counters.  The port also reproduces
+``golden_toykp_poses.json`` within ``tests/test_golden.py``'s tolerances.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from openpifpaf_tpu import headmeta as jax_headmeta
+from openpifpaf_tpu import ops as jax_ops
+from openpifpaf_tpu_torch import decoder, headmeta, ops
+from openpifpaf_tpu_torch.ops import growth
+from openpifpaf_tpu_torch.plugins.coco import constants
+
+from test_decoder import build_fields, synthetic_pose
+
+FIXTURES = os.path.join(os.path.dirname(__file__), 'fixtures')
+
+
+def metas(hm):
+    cif = hm.Cif('cif', 'toykp', keypoints=constants.COCO_KEYPOINTS,
+                 sigmas=constants.COCO_PERSON_SIGMAS,
+                 score_weights=constants.COCO_PERSON_SCORE_WEIGHTS)
+    caf = hm.Caf('caf', 'toykp', keypoints=constants.COCO_KEYPOINTS,
+                 sigmas=constants.COCO_PERSON_SIGMAS,
+                 skeleton=constants.COCO_PERSON_SKELETON)
+    cif.head_index, caf.head_index = 0, 1
+    cif.base_stride = caf.base_stride = 16
+    return cif, caf
+
+
+def decode_both(cif, caf, image_hw):
+    jc, ja = metas(jax_headmeta)
+    want = jax_ops.make_batch_decoder(
+        cif_meta=jc, caf_meta=ja,
+        config=jax_ops.CifCafConfig(stride=16, image_hw=image_hw))(cif, caf)
+    tc, ta = metas(headmeta)
+    got = ops.make_batch_decoder(
+        cif_meta=tc, caf_meta=ta,
+        config=ops.CifCafConfig(stride=16, image_hw=image_hw),
+        device='cpu')(cif, caf)
+    return ([np.asarray(x) for x in want], [x.numpy() for x in got])
+
+
+def assert_same_decode(want, got):
+    names = ops.DecodedPoses._fields
+    w, g = dict(zip(names, want)), dict(zip(names, got))
+    for name in names:
+        assert w[name].shape == g[name].shape, name
+    np.testing.assert_array_equal(g['valid'], w['valid'])
+    np.testing.assert_allclose(g['xyv'], w['xyv'], atol=1e-3, rtol=0)
+    np.testing.assert_allclose(g['joint_scales'], w['joint_scales'],
+                               atol=1e-3, rtol=0)
+    np.testing.assert_allclose(g['scores'], w['scores'], atol=1e-4, rtol=0)
+    for name in ('n_dropped_caf', 'n_dropped_cif', 'n_dropped_poses'):
+        np.testing.assert_array_equal(g[name], w[name], err_msg=name)
+
+
+@pytest.fixture(scope='module')
+def golden():
+    fields = np.load(os.path.join(FIXTURES, 'golden_toykp_fields.npz'))
+    with open(os.path.join(FIXTURES, 'golden_toykp_poses.json')) as f:
+        poses = json.load(f)
+    return fields['cif'], fields['caf'], poses
+
+
+def test_golden_fields_match_jax_decode(golden):
+    cif, caf, _ = golden
+    want, got = decode_both(cif, caf, (161, 161))
+    assert_same_decode(want, got)
+    assert got[3].sum() == 6
+
+
+def test_painted_scenes_match_jax_decode():
+    """Single person, two people, a crowded 3x3 grid and an empty image in
+    one batch (one JAX compile)."""
+    kp, scales = synthetic_pose()
+    single = build_fields([(kp, scales)])
+    kp1, s1 = synthetic_pose(offset_px=(-70.0, 0.0))
+    kp2, _ = synthetic_pose(offset_px=(75.0, 10.0))
+    two = build_fields([(kp1, s1), (kp2, s1)])
+    crowd = build_fields([
+        synthetic_pose(offset_px=(dx, dy), scale=8.0)
+        for dy in (0.0, 110.0, 220.0) for dx in (-110.0, 0.0, 110.0)])
+    empty = (np.full_like(single[0], -10.0), np.full_like(single[1], -10.0))
+    scenes = [single, two, crowd, empty]
+    cif = np.stack([s[0] for s in scenes])
+    caf = np.stack([s[1] for s in scenes])
+    want, got = decode_both(cif, caf, (21 * 16, 21 * 16))
+    assert_same_decode(want, got)
+    assert got[3].sum(axis=1).tolist() == [1, 2, 9, 0]
+
+
+def test_golden_poses_reproduced(golden):
+    """``tests/test_golden.py`` through the port's CifCaf decoder."""
+    cif, caf, meta = golden
+    dec = decoder.factory(list(metas(headmeta)), device='cpu')
+    anns = dec.batch_fields([torch.from_numpy(cif), torch.from_numpy(caf)])
+    for i, want_poses in enumerate(meta['poses']):
+        assert len(anns[i]) == len(want_poses), f'image {i}: pose count'
+        got = sorted(anns[i], key=lambda a: -a.score)
+        for ann, want in zip(got, want_poses):
+            want_xyv = np.asarray(want['xyv'], np.float32)
+            assert abs(float(ann.score) - want['score']) < 0.01
+            vis = want_xyv[:, 2] > 0
+            np.testing.assert_array_equal(ann.data[:, 2] > 0, vis)
+            np.testing.assert_allclose(ann.data[vis, :2], want_xyv[vis, :2],
+                                       atol=1.0)
+            np.testing.assert_allclose(ann.data[vis, 2], want_xyv[vis, 2],
+                                       atol=0.02)
+    # the single-image call decodes the same poses
+    one = dec([cif[1], caf[1]])
+    assert [a.score for a in one] == [a.score for a in anns[1]]
+
+
+def test_unported_options_raise():
+    cif_meta, caf_meta = metas(headmeta)
+    old = decoder.CifCaf.force_complete
+    try:
+        decoder.CifCaf.force_complete = True
+        with pytest.raises(NotImplementedError):
+            decoder.CifCaf(cif_meta, caf_meta, device='cpu')
+    finally:
+        decoder.CifCaf.force_complete = old
+    old = decoder.CifCaf.dense_connections
+    try:
+        decoder.CifCaf.dense_connections = 1.0
+        with pytest.raises(NotImplementedError):
+            decoder.CifCaf(cif_meta, caf_meta, dense_caf_meta=caf_meta,
+                           device='cpu')
+    finally:
+        decoder.CifCaf.dense_connections = old
+    for kw in (dict(force_complete=True), dict(placements_per_round=2),
+               dict(seed_dedup=True)):
+        config = ops.CifCafConfig(growth=growth.GrowthConfig(**kw))
+        with pytest.raises(NotImplementedError):
+            ops.make_batch_decoder(cif_meta=cif_meta, caf_meta=caf_meta,
+                                   config=config, device='cpu')
