@@ -7,17 +7,22 @@ Usage (from the repository root, one CUDA card):
 Phases, in order; any failure raises and exits non-zero:
 
 1. card: torch and CUDA versions, the card's name and power limit;
-2. build: every CUDA kernel of the port from ``openpifpaf_tpu_torch/csrc``;
+2. build: every CUDA kernel of the port from ``openpifpaf_tpu_torch/csrc``,
+   one ``nvcc`` each, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the bench shape, on dense and sparse synthetic cells, with timings (CUDA
-   events) and its bound;
+   the bench shapes, with timings (CUDA events) and its bound: K1 on dense
+   and sparse synthetic cells; K2 on sn2k16's three stride-1 chains at
+   batch 8 in bf16 and f32, also timed against the same blocks run as the
+   canonical modules;
 4. golden decode: ``tests/fixtures/golden_toykp_fields.npz`` decoded on the
    card, held against ``golden_toykp_poses.json`` and the CPU decode;
 5. serve: ShuffleNetV2K-16 (CIF + CAF heads, seeded random weights, bf16)
    serves 3 distinct batches of 8 images at 641x641 through ``Predictor``,
-   counting kernel launches and host syncs; two served images' decode
-   (at the budgets) held against the CPU decode of the same fields; then
-   per-image timings;
+   whose forward is the pair plan (``Model.apply_fast``), counting kernel
+   launches and host syncs; the served fields held against the canonical
+   graph (``Model.apply``) in bf16, and in f32 on two images; two served
+   images' decode (at the budgets) held against the CPU decode of the same
+   fields; then per-image timings;
 6. kernels at the main path's inputs: each kernel against its plain version
    and timed on the very tensors the serve phase handed it;
 7. with ``--profile``: one served batch under ``torch.profiler``, the
@@ -42,10 +47,14 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(REPO, 'tests', 'fixtures')
 
-# the card's published rates (H100 SXM data sheet): HBM bandwidth and f32
-# rate outside the tensor cores
+# the card's published rates (H100 SXM data sheet): HBM bandwidth, the f32
+# rate outside the tensor cores and the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+# sn2k16's stride-1 chains: (stage, blocks, side at 641 px, half-width C)
+SN2K16_CHAINS = ((2, 3, 161, 174), (3, 7, 81, 348), (4, 3, 41, 696))
+KERNELS = ('cif_hr', 'pair_chain')
 
 
 def card_line() -> str:
@@ -194,6 +203,141 @@ def check_cif_hr(cif_hr) -> dict:
     return result
 
 
+# ----------------------------------------------------------------------- K2
+def perturbed_sn2k16(port):
+    """A seeded sn2k16 on the card whose BatchNorm statistics are perturbed
+    from a numpy seed (means + N(0, 0.3), variances times U(0.5, 2)), so the
+    BN fold is not the identity and relu(o1) is not 0 at the image edge."""
+    cif, caf = coco_metas(port.headmeta, port.constants)
+    model = port.models.factory('shufflenetv2k16', [cif, caf], device='cuda',
+                                seed=0)
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for m in model.module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                shape = tuple(m.running_mean.shape)
+                m.running_mean.add_(torch.as_tensor(
+                    rng.normal(0.0, 0.3, shape), dtype=torch.float32,
+                    device='cuda'))
+                m.running_var.mul_(torch.as_tensor(
+                    rng.uniform(0.5, 2.0, shape), dtype=torch.float32,
+                    device='cuda'))
+    return model.module.basenet
+
+
+def chain_bound_ms(n_blocks, pixels, c, itemsize):
+    """The least time the card could take for a chain: the bytes (the pair
+    read once and written once in its storage type, each block's weights
+    and folded vectors read once) over HBM bandwidth, against its
+    2 * (2 C^2 + 25 C) operations per pixel and block (two C x C products
+    and the 5x5 stencil) over the tensor cores' bf16 rate (the f32 rate
+    outside the tensor cores for f32 storage)."""
+    n_bytes = (4 * pixels * c * itemsize
+               + n_blocks * (2 * c * c * itemsize + 31 * c * 4))
+    ops = 2.0 * n_blocks * pixels * (2 * c * c + 25 * c)
+    bytes_s = n_bytes / HBM_BYTES_PER_S
+    ops_s = ops / (BF16_OPS_PER_S if itemsize == 2 else F32_OPS_PER_S)
+    return (1e3 * max(bytes_s, ops_s), 'bytes' if bytes_s >= ops_s
+            else 'operations', n_bytes, ops)
+
+
+def measure_pair_chain(pc, name, a, b, chain, modules) -> dict:
+    """K2 against its plain version on ``(a, b)``, then the kernel, the
+    plain version and the same blocks as the canonical modules (on the
+    logical NCHW tensor, bf16 through autocast) timed.  Limits: bf16
+    max|kernel - plain| <= 3e-2 max|plain| (``test_fused_shufflenet.py:321``);
+    f32 max|kernel - plain| / (1 + |plain|) <= 1e-5."""
+    bf16 = a.dtype == torch.bfloat16
+    got = pc.pair_chain(a, b, chain)
+    want = pc.pair_chain_plain(a, b, chain.blocks, chain.dtype)
+    torch.cuda.synchronize()
+    err, worst = 0.0, 0.0
+    for g, w in zip(got, want):
+        d = (g.float() - w.float()).abs()
+        err = max(err, float(d.max()))
+        if bf16:
+            worst = max(worst, float(d.max() / w.float().abs().max()))
+        else:
+            worst = max(worst, float((d / (1.0 + w.float().abs())).max()))
+    limit = 3e-2 if bf16 else 1e-5
+    measure = 'max|d|/max|plain|' if bf16 else 'max|d|/(1+|plain|)'
+    print(f'pair_chain {name} {tuple(a.shape)} {str(a.dtype)[6:]}: '
+          f'{len(chain.blocks)} blocks, max|kernel - plain| {err:.3e}, '
+          f'{measure} {worst:.3e} (limit {limit:g})', flush=True)
+    if not worst <= limit:
+        raise AssertionError(f'pair_chain kernel disagrees ({name}): {worst}')
+
+    def canonical():
+        x = pc.interleave(a, b).permute(0, 3, 1, 2).contiguous()
+        with torch.no_grad(), torch.autocast('cuda', dtype=torch.bfloat16,
+                                             enabled=bf16):
+            for module in modules:
+                x = module(x)
+        return x
+
+    ms = cuda_ms(lambda: pc.pair_chain(a, b, chain))
+    plain = cuda_ms(lambda: pc.pair_chain_plain(a, b, chain.blocks,
+                                                chain.dtype))
+    canon = cuda_ms(canonical)
+    bsz, h, w, c = a.shape
+    bound, bound_by, n_bytes, ops = chain_bound_ms(
+        len(chain.blocks), bsz * h * w, c, a.element_size())
+    print(f'pair_chain {name}: kernel median {ms[0]:.4f} ms [min {ms[1]:.4f}, '
+          f'max {ms[2]:.4f}], plain {plain[0]:.4f} ms, canonical modules '
+          f'{canon[0]:.4f} ms, bound {bound:.4f} ms by {bound_by} '
+          f'({n_bytes} B, {ops:.4g} ops; {100 * bound / ms[0]:.1f}% of it), '
+          f'no single PyTorch call computes it', flush=True)
+    return dict(ms=ms[0], plain_ms=plain[0], canonical_ms=canon[0],
+                bound_ms=bound, bound_by=bound_by, max_abs_err=err)
+
+
+def profile_pair_chain(pc, name, a, b, chain) -> None:
+    """Device time per call of each of K2's CUDA kernels (interleave,
+    expand, project), from ``torch.profiler`` over 5 chain calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            pc.pair_chain(a, b, chain)
+        torch.cuda.synchronize()
+    parts = []
+    for e in prof.key_averages():
+        us = getattr(e, 'self_device_time_total',
+                     getattr(e, 'self_cuda_time_total', 0.0))
+        if us and '_kernel<' in e.key:
+            kernel = e.key.split('::')[-1].split('<')[0]
+            parts.append(f'{kernel} {us / e.count:.1f} us x {e.count // 5}')
+    print(f'pair_chain {name} per kernel call: {", ".join(sorted(parts))}',
+          flush=True)
+
+
+def check_pair_chain(port) -> dict:
+    """K2 against its plain version at sn2k16's three chain shapes, batch 8,
+    bf16 and f32, on random post-relu pairs from a numpy seed."""
+    pc = port.pair_chain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    net = perturbed_sn2k16(port)
+    rng = np.random.default_rng(2)
+    result = {}
+    for stage, n, side, c in SN2K16_CHAINS:
+        modules = [getattr(net, f'stage{stage}_{i}') for i in range(1, n + 1)]
+        params = [pc.block_params(m) for m in modules]
+        pair = [np.abs(rng.standard_normal((8, side, side, c),
+                                           dtype=np.float32))
+                for _ in range(2)]
+        for dtype in (torch.bfloat16, torch.float32):
+            a, b = (torch.as_tensor(x, device='cuda').to(dtype) for x in pair)
+            chain = pc.pack(params, dtype)
+            result[stage, dtype] = measure_pair_chain(
+                pc, f'stage {stage}', a, b, chain, modules)
+            if dtype == torch.bfloat16:
+                profile_pair_chain(pc, f'stage {stage}', a, b, chain)
+            del a, b
+    return result
+
+
 # ----------------------------------------------------------- golden decode
 def coco_metas(headmeta, constants):
     cif = headmeta.Cif('cif', 'toykp', keypoints=constants.COCO_KEYPOINTS,
@@ -300,7 +444,8 @@ def serve(port, card: str) -> dict:
     batches = [[rng.integers(0, 256, (641, 641, 3), dtype=np.uint8)
                 for _ in range(8)] for _ in range(3)]
 
-    # the fields of the first batch: finite, of the expected shapes
+    # the fields of the first batch: finite, of the expected shapes, and the
+    # pair plan's (apply_fast, K2) equal to the canonical graph's
     x, _ = predictor.preprocess(batches[0])
     fields = predictor.model(x)
     shapes = [tuple(f.shape) for f in fields]
@@ -308,22 +453,34 @@ def serve(port, card: str) -> dict:
         raise AssertionError(f'field shapes {shapes}')
     if not all(bool(torch.isfinite(f).all()) for f in fields):
         raise AssertionError('non-finite fields')
+    hold_fast_to_canonical(port, predictor.model, x, metas)
 
-    # warm-up, keeping what the main path hands K1 for its timing below
-    captured = []
+    # warm-up, keeping what the main path hands K1 and K2 for their timing
+    captured, chains = [], []
     launch = port.cif_hr.cif_hr_accumulate
+    launch_chain = port.pair_chain.pair_chain
 
     def spy(*args, **kwargs):
         captured.append(([a.clone() for a in args], dict(kwargs)))
         return launch(*args, **kwargs)
 
+    def spy_chain(a, b, chain):
+        chains.append((a.clone(), b.clone(), chain))
+        return launch_chain(a, b, chain)
+
     port.cif_hr.cif_hr_accumulate = spy
+    port.pair_chain.pair_chain = spy_chain
     try:
         predictor.batch(batches[0])
     finally:
         port.cif_hr.cif_hr_accumulate = launch
+        port.pair_chain.pair_chain = launch_chain
     if len(captured) != 1:
         raise AssertionError(f'one batch launched K1 {len(captured)} times')
+    if [tuple(a.shape) for a, _, _ in chains] != [
+            (8, side, side, c) for _, _, side, c in SN2K16_CHAINS]:
+        raise AssertionError(f'one batch ran K2 on '
+                             f'{[tuple(a.shape) for a, _, _ in chains]}')
 
     # the main path: counts to 0, three distinct batches, counts read; the
     # decoder's fields and results are kept to check the decode below
@@ -337,12 +494,15 @@ def serve(port, card: str) -> dict:
 
     predictor.decoder.batch_decoded = keep
     port.cif_hr.KERNEL_LAUNCHES = 0
+    port.pair_chain.KERNEL_LAUNCHES = port.pair_chain.CUDA_LAUNCHES = 0
     port.common.HOST_SYNCS = 0
     try:
         results = [predictor.batch(images) for images in batches]
     finally:
         del predictor.decoder.batch_decoded
     launches = port.cif_hr.KERNEL_LAUNCHES
+    chain_calls = port.pair_chain.KERNEL_LAUNCHES
+    chain_kernels = port.pair_chain.CUDA_LAUNCHES
     syncs = port.common.HOST_SYNCS
     n_anns = [len(preds) for res in results for preds, _ in res]
     for res in results:
@@ -351,10 +511,14 @@ def serve(port, card: str) -> dict:
                 if not np.isfinite(ann.data).all():
                     raise AssertionError('non-finite annotation')
     print(f'serve: 3 batches of 8 at 641x641, annotations per image '
-          f'{n_anns}; cif_hr launches {launches}, host syncs {syncs} '
+          f'{n_anns}; cif_hr launches {launches}, pair_chain calls '
+          f'{chain_calls} ({chain_kernels} CUDA kernels), host syncs {syncs} '
           f'({syncs / 3:.1f} per batch)', flush=True)
     if launches < 3:
         raise AssertionError(f'main path launched cif_hr {launches} times')
+    if chain_calls != 3 * len(SN2K16_CHAINS) or chain_kernels != 3 * 3 * 13:
+        raise AssertionError(f'main path ran pair_chain {chain_calls} times '
+                             f'({chain_kernels} kernels), want 9 (117)')
     # the decode at its budgets, held to the CPU decode on two served images
     fields, on_card = decoded[0]
     hold_card_to_cpu(port, predictor.decoder, [t[:2] for t in on_card],
@@ -377,9 +541,43 @@ def serve(port, card: str) -> dict:
           f'{stat(dec)}; peak device memory '
           f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})',
           flush=True)
-    return dict(launches=launches, host_syncs_per_batch=syncs / 3,
-                cif_hr_inputs=captured[0], predictor=predictor,
-                images=batches[0])
+    return dict(launches=launches, chain_launches=chain_calls,
+                host_syncs_per_batch=syncs / 3, cif_hr_inputs=captured[0],
+                chain_inputs=chains, predictor=predictor, images=batches[0])
+
+
+def hold_fast_to_canonical(port, model, x, metas) -> None:
+    """The served forward (``apply_fast``: the pair plan with K2) against
+    the canonical graph (``apply``) on the same images: in bf16 on the whole
+    batch, max|d| <= 3e-2 max|canonical| per head (both round to bf16, at
+    other places; the CPU tests' bound); in f32 with TF32 off on two images,
+    max|d| / (1 + |canonical|) <= 1e-4 (sums in other orders over 16
+    blocks)."""
+    pc = port.pair_chain
+    fast, canonical = model(x), model.apply(x)
+    worst = max(float((f - c).abs().max() / c.abs().max())
+                for f, c in zip(fast, canonical))
+    print(f'served fields, apply_fast (pair plan, K2) vs apply (canonical), '
+          f'bf16, batch {x.shape[0]}: max|d|/max|canonical| {worst:.3e} '
+          f'(limit 3e-2)', flush=True)
+    if not worst <= 3e-2:
+        raise AssertionError(f'apply_fast and apply differ in bf16: {worst}')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model32 = port.models.Model(model.module, metas,
+                                base_stride=model.base_stride,
+                                device=model.device, bf16=False)
+    before = pc.KERNEL_LAUNCHES
+    fast = model32(x[:2])
+    if pc.KERNEL_LAUNCHES != before + len(SN2K16_CHAINS):
+        raise AssertionError('the f32 forward did not run its chains on K2')
+    canonical = model32.apply(x[:2])
+    worst = max(float(((f - c).abs() / (1.0 + c.abs())).max())
+                for f, c in zip(fast, canonical))
+    print(f'served fields, apply_fast vs apply, f32 (TF32 off), 2 images: '
+          f'max|d|/(1+|canonical|) {worst:.3e} (limit 1e-4)', flush=True)
+    if not worst <= 1e-4:
+        raise AssertionError(f'apply_fast and apply differ in f32: {worst}')
 
 
 def profile_batch(predictor, images) -> None:
@@ -416,12 +614,13 @@ class _Port:
     """The port's modules, imported after the card check."""
 
     def __init__(self):
-        from openpifpaf_tpu_torch import decoder, headmeta, kernels, ops
-        from openpifpaf_tpu_torch.ops import cif_hr, common
+        from openpifpaf_tpu_torch import decoder, headmeta, kernels, models, ops
+        from openpifpaf_tpu_torch.ops import cif_hr, common, pair_chain
         from openpifpaf_tpu_torch.plugins.coco import constants
-        self.decoder, self.headmeta, self.kernels, self.ops = \
-            decoder, headmeta, kernels, ops
+        self.decoder, self.headmeta, self.kernels, self.models, self.ops = \
+            decoder, headmeta, kernels, models, ops
         self.cif_hr, self.common, self.constants = cif_hr, common, constants
+        self.pair_chain = pair_chain
 
 
 def main() -> int:
@@ -435,15 +634,17 @@ def main() -> int:
 
     phase('build')
     start = time.perf_counter()
-    log = port.kernels.build('cif_hr')
-    print(f'built csrc/cif_hr.cu in {time.perf_counter() - start:.2f} s',
-          flush=True)
-    for line in log.splitlines():
-        if 'registers' in line or 'spill' in line or 'smem' in line:
-            print(f'  cif_hr: {line.strip()}', flush=True)
+    logs = port.kernels.build_all(KERNELS)
+    print(f'built {", ".join(f"csrc/{k}.cu" for k in KERNELS)} in '
+          f'{time.perf_counter() - start:.2f} s', flush=True)
+    for name in KERNELS:
+        for line in logs[name].splitlines():
+            if 'registers' in line or 'spill' in line or 'smem' in line:
+                print(f'  {name}: {line.strip()}', flush=True)
 
     phase('kernels against plain versions')
     k1 = check_cif_hr(port.cif_hr)
+    k2 = check_pair_chain(port)
 
     phase('golden decode')
     check_golden_decode(port)
@@ -455,6 +656,26 @@ def main() -> int:
     args, kwargs = served['cif_hr_inputs']
     main = measure_cif_hr(port.cif_hr, 'served batch', args, kwargs)
     max_err = max(k1['max_abs_err'], main['max_abs_err'])
+    basenet = served['predictor'].model.module.basenet
+    chains = []
+    for (a, b, chain), (stage, n, _, _) in zip(served['chain_inputs'],
+                                               SN2K16_CHAINS):
+        modules = [getattr(basenet, f'stage{stage}_{i}')
+                   for i in range(1, n + 1)]
+        chains.append(measure_pair_chain(port.pair_chain,
+                                         f'served stage {stage}', a, b,
+                                         chain, modules))
+    k2_main = {key: sum(c[key] for c in chains)
+               for key in ('ms', 'plain_ms', 'canonical_ms', 'bound_ms')}
+    by_ops = sum(c['bound_ms'] for c in chains
+                 if c['bound_by'] == 'operations')
+    k2_main['bound_by'] = ('operations' if 2 * by_ops >= k2_main['bound_ms']
+                           else 'bytes')
+    k2_err = max(r['max_abs_err'] for r in chains + list(k2.values()))
+    print(f'pair_chain per served batch (3 chains): kernel '
+          f'{k2_main["ms"]:.4f} ms, plain {k2_main["plain_ms"]:.4f} ms, '
+          f'canonical modules {k2_main["canonical_ms"]:.4f} ms, bound '
+          f'{k2_main["bound_ms"]:.4f} ms ({k2_main["bound_by"]})', flush=True)
 
     if '--profile' in sys.argv[1:]:
         phase('profile')
@@ -469,6 +690,15 @@ def main() -> int:
         'max_abs_err': max_err, 'max_abs_diff': max_err,
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
+        'library_ms': None}, {
+        'name': 'pair_chain', 'route': 'cuda',
+        'source': 'openpifpaf_tpu_torch/csrc/pair_chain.cu',
+        'replaces': 'openpifpaf_tpu/ops/pallas_pair_chain.py:184',
+        'function': 'pair_chain_pallas',
+        'launches': served['chain_launches'],
+        'max_abs_err': k2_err, 'max_abs_diff': k2_err,
+        'ms': k2_main['ms'], 'plain_ms': k2_main['plain_ms'],
+        'bound_ms': k2_main['bound_ms'], 'bound_by': k2_main['bound_by'],
         'library_ms': None}]}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -1,11 +1,13 @@
-"""Build and load the hand-written CUDA kernel (``csrc/cif_hr.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/<name>.cu``).
 
-The source compiles with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
-build takes seconds).  The library goes to ``build/openpifpaf_tpu_torch/``
-beside the package, named by a hash of its source, and is built at first
-use — never at import, so the package imports on a machine without
-``nvcc``.
+``cif_hr.cu`` (K1, the CifHr splat) and ``pair_chain.cu`` (K2, the pair
+plan's stride-1 chain).  Each source compiles with ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds).  The library goes to
+``build/openpifpaf_tpu_torch/`` beside the package, named by a hash of its
+source, and is built at first use — never at import, so the package
+imports on a machine without ``nvcc``.  ``build_all`` compiles several
+sources at once, one ``nvcc`` process each.
 """
 
 from __future__ import annotations
@@ -32,25 +34,39 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f'lib{name}_{digest.hexdigest()[:12]}.so'
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless it is built already.  Returns
-    nvcc's output (the ptxas register report; empty when nothing was
-    built); raises on a failed build."""
-    out = library_path(name)
-    if out.exists():
-        return ''
+def build_all(names) -> Dict[str, str]:
+    """Compile ``csrc/<name>.cu`` for each name not built yet, one ``nvcc``
+    process each, all started together.  Returns nvcc's output per name
+    (the ptxas register report; empty when nothing was built); raises on a
+    failed build."""
     nvcc = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, '-o', str(tmp),
-                           str(CSRC / f'{name}.cu')],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed on {name}.cu (exit '
-                           f'{proc.returncode}):\n{proc.stdout}')
-    os.replace(tmp, out)
-    return proc.stdout
+    logs, running = {}, {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            logs[name] = ''
+            continue
+        tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+        running[name] = (out, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (out, tmp, proc) in running.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f'nvcc failed on {name}.cu (exit {proc.returncode}):'
+                          f'\n{logs[name]}')
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+    return logs
+
+
+def build(name: str) -> str:
+    """``build_all`` of one source."""
+    return build_all([name])[name]
 
 
 def library(name: str) -> ctypes.CDLL:

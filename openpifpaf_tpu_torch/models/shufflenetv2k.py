@@ -87,6 +87,9 @@ class ShuffleNetV2K(nn.Module):
                  stages_out_channels: Sequence[int], kernel_size: int = 5):
         super().__init__()
         c = list(stages_out_channels)
+        self.stages_repeats = tuple(stages_repeats)
+        self.stages_out_channels = tuple(c)
+        self.kernel_size = kernel_size
         self.conv1 = nn.Conv2d(3, c[0], 3, stride=2, padding=1, bias=False)
         self.conv1_norm = batch_norm(c[0])
         self.block_names = []

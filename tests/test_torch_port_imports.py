@@ -5,8 +5,9 @@
   none of them);
 - entry points default to ``device='cuda'`` and raise without CUDA instead
   of falling back to the CPU;
-- the CUDA kernel's wrapper takes CUDA tensors only: the plain version is
-  chosen by ``cif_hr.accumulate`` only for tensors that lie on the CPU.
+- the CUDA kernels' wrappers take CUDA tensors only: the plain versions are
+  chosen (by ``cif_hr.accumulate``, ``pair_chain.apply_chain``) only for
+  tensors that lie on the CPU.
 """
 
 import ast
@@ -114,9 +115,10 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 def test_kernel_sources_and_build_dir():
     from openpifpaf_tpu_torch import kernels
 
-    assert {p.stem for p in kernels.CSRC.glob('*.cu')} == {'cif_hr'}
+    assert {p.stem for p in kernels.CSRC.glob('*.cu')} == \
+        {'cif_hr', 'pair_chain'}
     assert 'arch=compute_90a,code=sm_90a' in kernels.NVCC_FLAGS
-    path = kernels.library_path('cif_hr')
-    assert path.parent == kernels.BUILD_DIR
+    for name in ('cif_hr', 'pair_chain'):
+        assert kernels.library_path(name).parent == kernels.BUILD_DIR
     assert kernels.BUILD_DIR.relative_to(REPO).as_posix() == \
         'build/openpifpaf_tpu_torch'
