@@ -8,12 +8,18 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. card: torch and CUDA versions, the card's name and power limit;
 2. build: every CUDA kernel of the port from ``openpifpaf_tpu_torch/csrc``,
-   one ``nvcc`` each, all started together;
+   one ``nvcc`` each, all started together; then ``cuobjdump -sass`` of
+   K2's library: per kernel the counts of HGMMA (wgmma), UTMALDG (TMA
+   loads), UBLKCP (bulk copies) and HMMA (mma.sync), failing unless both
+   bf16 GEMM kernels run HGMMA, load by TMA or bulk copy and run no HMMA;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the bench shapes, with timings (CUDA events) and its bound: K1 on dense
    and sparse synthetic cells; K2 on sn2k16's three stride-1 chains at
    batch 8 in bf16 and f32, also timed against the same blocks run as the
-   canonical modules;
+   canonical modules, on sn2k30's stage-4 chain (C = 1024, 5 blocks,
+   41x41, batch 2) and on a small odd image (13x13, every tile at an edge);
+   then ``Model.apply_fast`` in f32 at sn2k30's and sn2k44's widths against
+   ``Model.apply``;
 4. golden decode: ``tests/fixtures/golden_toykp_fields.npz`` decoded on the
    card, held against ``golden_toykp_poses.json`` and the CPU decode;
 5. serve: ShuffleNetV2K-16 (CIF + CAF heads, seeded random weights, bf16)
@@ -37,6 +43,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -54,6 +62,9 @@ F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 # sn2k16's stride-1 chains: (stage, blocks, side at 641 px, half-width C)
 SN2K16_CHAINS = ((2, 3, 161, 174), (3, 7, 81, 348), (4, 3, 41, 696))
+# K2's CUDA kernels per stride-1 block, and its chains' blocks per forward
+KERNELS_PER_BLOCK = 2
+SN2K16_BLOCKS = sum(n for _, n, _, _ in SN2K16_CHAINS)
 KERNELS = ('cif_hr', 'pair_chain')
 
 
@@ -204,13 +215,13 @@ def check_cif_hr(cif_hr) -> dict:
 
 
 # ----------------------------------------------------------------------- K2
-def perturbed_sn2k16(port):
-    """A seeded sn2k16 on the card whose BatchNorm statistics are perturbed
-    from a numpy seed (means + N(0, 0.3), variances times U(0.5, 2)), so the
-    BN fold is not the identity and relu(o1) is not 0 at the image edge."""
+def perturbed_backbone(port, name='shufflenetv2k16'):
+    """A seeded backbone on the card whose BatchNorm statistics are
+    perturbed from a numpy seed (means + N(0, 0.3), variances times
+    U(0.5, 2)), so the BN fold is not the identity and relu(o1) is not 0 at
+    the image edge."""
     cif, caf = coco_metas(port.headmeta, port.constants)
-    model = port.models.factory('shufflenetv2k16', [cif, caf], device='cuda',
-                                seed=0)
+    model = port.models.factory(name, [cif, caf], device='cuda', seed=0)
     rng = np.random.default_rng(0)
     with torch.no_grad():
         for m in model.module.modules():
@@ -275,6 +286,8 @@ def measure_pair_chain(pc, name, a, b, chain, modules) -> dict:
                 x = module(x)
         return x
 
+    if bf16:
+        print_plan(pc, name, a)
     ms = cuda_ms(lambda: pc.pair_chain(a, b, chain))
     plain = cuda_ms(lambda: pc.pair_chain_plain(a, b, chain.blocks,
                                                 chain.dtype))
@@ -291,9 +304,29 @@ def measure_pair_chain(pc, name, a, b, chain, modules) -> dict:
                 bound_ms=bound, bound_by=bound_by, max_abs_err=err)
 
 
+def print_plan(pc, name, a) -> None:
+    """K2's bf16 launch plan for ``a``'s shape, and the weight bytes its
+    kernels stream from L2 into the SMs per block: each pixel tile a CTA
+    meets reads all (Np, Kp) weights (Np padded to whole wgmma tiles)."""
+    bsz, h, w, c = a.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = pc.launch_plan(c, a.dtype, bsz, h, w, sms)
+    weights = p.n_tiles * p.n_tile * p.kp * 2
+    rows = 'rows from q - q % 2' if p.slab_half else 'whole rows'
+    print(f'pair_chain {name} plan: N tile {p.n_tile} x {p.n_tiles}, Kp '
+          f'{p.kp}; expand {p.expand_rows}-pixel tiles x {p.expand_tiles} '
+          f'on {p.expand_grid} CTAs, weight ring {p.expand_stages}, pair '
+          f'slabs of 64 px ({rows}) x {p.slab_stages}, {p.expand_smem} B; '
+          f'project {p.tile_h}x{p.tile_w} tiles x {p.project_tiles} on '
+          f'{p.project_grid} CTAs, weight ring {p.project_stages}, halo ring '
+          f'{p.halo_stages}, {p.project_smem} B; weights streamed from L2 '
+          f'per block: expand {p.expand_tiles * weights / 1e6:.1f} MB, '
+          f'project {p.project_tiles * weights / 1e6:.1f} MB', flush=True)
+
+
 def profile_pair_chain(pc, name, a, b, chain) -> None:
-    """Device time per call of each of K2's CUDA kernels (interleave,
-    expand, project), from ``torch.profiler`` over 5 chain calls."""
+    """Device time per call of each of K2's CUDA kernels (expand_kernel,
+    project_kernel), from ``torch.profiler`` over 5 chain calls."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -305,37 +338,112 @@ def profile_pair_chain(pc, name, a, b, chain) -> None:
     for e in prof.key_averages():
         us = getattr(e, 'self_device_time_total',
                      getattr(e, 'self_cuda_time_total', 0.0))
-        if us and '_kernel<' in e.key:
-            kernel = e.key.split('::')[-1].split('<')[0]
-            parts.append(f'{kernel} {us / e.count:.1f} us x {e.count // 5}')
+        found = re.search(r'(expand_kernel|project_kernel)<[^>]*>', e.key)
+        if us and found:
+            parts.append(f'{found.group(0)} {us / e.count:.1f} us x '
+                         f'{e.count // 5}')
     print(f'pair_chain {name} per kernel call: {", ".join(sorted(parts))}',
           flush=True)
 
 
 def check_pair_chain(port) -> dict:
-    """K2 against its plain version at sn2k16's three chain shapes, batch 8,
-    bf16 and f32, on random post-relu pairs from a numpy seed."""
+    """K2 against its plain version, bf16 and f32, on random post-relu
+    pairs from a numpy seed: at sn2k16's three chain shapes at batch 8, at
+    sn2k30's stage-4 chain (C = 1024, 5 blocks, 41x41, batch 2), and at
+    sn2k16's stage-2 chain on 13x13 images (batch 3), where every tile
+    meets the image edge."""
     pc = port.pair_chain
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    net = perturbed_sn2k16(port)
+    net16 = perturbed_backbone(port)
+    net30 = perturbed_backbone(port, 'shufflenetv2k30')
     rng = np.random.default_rng(2)
     result = {}
-    for stage, n, side, c in SN2K16_CHAINS:
+    cases = [(f'stage {stage}', net16, stage, n, 8, side, c)
+             for stage, n, side, c in SN2K16_CHAINS]
+    cases += [('sn2k30 stage 4', net30, 4, 5, 2, 41, 1024),
+              ('stage 2 at 13x13', net16, 2, 3, 3, 13, 174)]
+    for name, net, stage, n, bsz, side, c in cases:
         modules = [getattr(net, f'stage{stage}_{i}') for i in range(1, n + 1)]
         params = [pc.block_params(m) for m in modules]
-        pair = [np.abs(rng.standard_normal((8, side, side, c),
+        pair = [np.abs(rng.standard_normal((bsz, side, side, c),
                                            dtype=np.float32))
                 for _ in range(2)]
         for dtype in (torch.bfloat16, torch.float32):
             a, b = (torch.as_tensor(x, device='cuda').to(dtype) for x in pair)
             chain = pc.pack(params, dtype)
-            result[stage, dtype] = measure_pair_chain(
-                pc, f'stage {stage}', a, b, chain, modules)
-            if dtype == torch.bfloat16:
-                profile_pair_chain(pc, f'stage {stage}', a, b, chain)
+            result[name, dtype] = measure_pair_chain(pc, name, a, b, chain,
+                                                     modules)
+            if dtype == torch.bfloat16 and bsz == 8:
+                profile_pair_chain(pc, name, a, b, chain)
             del a, b
     return result
+
+
+def sass_check(port) -> None:
+    """``cuobjdump -sass`` of K2's built library: per kernel the counts of
+    HGMMA (wgmma), UTMALDG (TMA loads), UBLKCP (bulk copies) and HMMA
+    (mma.sync).  Raises unless every bf16 GEMM kernel (``expand_kernel``,
+    ``project_kernel``) runs HGMMA, loads by TMA or bulk copy and runs no
+    HMMA."""
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    sass = subprocess.run(
+        [tool, '-sass', str(port.kernels.library_path('pair_chain'))],
+        capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    ops = ('HGMMA', 'UTMALDG', 'UBLKCP', 'HMMA')
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            mangled = line.split('Function :')[1].strip()
+            found = re.search(r'(expand_kernel|project_kernel|expand_f32|'
+                              r'project_f32)I((?:Li\d+E)+)', mangled)
+            if found:
+                args = re.findall(r'Li(\d+)E', found.group(2))
+                name = f'{found.group(1)}<{",".join(args)}>'
+            else:
+                name = mangled
+            counts[name] = dict.fromkeys(ops, 0)
+        elif name is not None:
+            for op in ops:
+                counts[name][op] += bool(re.search(rf'\b{op}\b', line))
+    for name, c in sorted(counts.items()):
+        print(f'sass {name}: ' + ', '.join(f'{op} {c[op]}' for op in ops),
+              flush=True)
+    gemms = {k: c for k, c in counts.items()
+             if k.startswith(('expand_kernel<', 'project_kernel<'))}
+    bad = [k for k, c in gemms.items()
+           if not c['HGMMA'] or not (c['UTMALDG'] or c['UBLKCP'])
+           or c['HMMA']]
+    if len(gemms) < 2 or bad:
+        raise AssertionError(f'bf16 GEMM kernels without HGMMA or TMA, or '
+                             f'with mma.sync: {bad or "none found"}')
+
+
+def check_wide_f32(port) -> None:
+    """``Model.apply_fast`` in f32 at sn2k30's and sn2k44's widths (stage
+    half-widths 256, 512, 1024, whose f32 chains take 32-pixel tiles above
+    C = 704) against ``Model.apply``, TF32 off, one 129x129 image:
+    max|d| / (1 + |canonical|) <= 1e-4."""
+    pc = port.pair_chain
+    metas = list(coco_metas(port.headmeta, port.constants))
+    x = torch.as_tensor(np.random.default_rng(3).normal(
+        size=(1, 3, 129, 129)), dtype=torch.float32, device='cuda')
+    for name in ('shufflenetv2k30', 'shufflenetv2k44'):
+        model = port.models.factory(name, metas, device='cuda', seed=0,
+                                    bf16=False)
+        before = pc.KERNEL_LAUNCHES
+        fast = model(x)
+        if pc.KERNEL_LAUNCHES != before + len(SN2K16_CHAINS):
+            raise AssertionError(f'{name} f32 forward did not run K2')
+        canonical = model.apply(x)
+        worst = max(float(((f - c).abs() / (1.0 + c.abs())).max())
+                    for f, c in zip(fast, canonical))
+        print(f'{name} f32, apply_fast (K2) vs apply, 129x129: '
+              f'max|d|/(1+|canonical|) {worst:.3e} (limit 1e-4)', flush=True)
+        if not worst <= 1e-4:
+            raise AssertionError(f'{name}: apply_fast and apply differ in '
+                                 f'f32: {worst}')
+        del model
 
 
 # ----------------------------------------------------------- golden decode
@@ -388,9 +496,16 @@ def check_golden_decode(port) -> None:
 def hold_card_to_cpu(port, decoder, on_card, fields_cuda, label) -> None:
     """The card's decode of ``fields_cuda`` against the port's CPU decode of
     the same fields, with the configuration the card ran (f32 profiles,
-    ``profile_bf16=False``): the same valid set and overflow counters, xyv
-    within 1e-3 and scores within 1e-4 — the CPU parity tolerances against
-    JAX."""
+    ``profile_bf16=False``): per image the same number of valid poses, each
+    card pose matched one to one with a CPU pose, xyv within 1e-3 and score
+    within 1e-4 (the CPU parity tolerances against JAX), and the same CAF
+    and CifHr overflow counters.  Poses are matched rather than compared
+    slot by slot, and the third counter (seeds left unclaimed beyond the
+    max_poses budget) may differ by one per image: whether a seed is claimed
+    is a distance test against joints that the two decodes place within
+    that 1e-3, and a seed on the claim radius moves the later poses to
+    other slots (at the served budgets, every cell a detection, one seed of
+    ~180 sits on it)."""
     h, w = fields_cuda[0].shape[-2:]
     stride = decoder.cif_meta.stride
     config = decoder.config_for(((h - 1) * stride + 1, (w - 1) * stride + 1))
@@ -402,21 +517,34 @@ def hold_card_to_cpu(port, decoder, on_card, fields_cuda, label) -> None:
     card_np = [t.cpu().numpy() for t in on_card]
     cpu_np = [t.numpy() for t in on_cpu]
     valid_c, valid_h = card_np[3], cpu_np[3]
-    same_valid = np.array_equal(valid_c, valid_h)
-    both = valid_c & valid_h
-    dxyv = float(np.abs(card_np[0] - cpu_np[0])[both].max(initial=0.0))
-    dscore = float(np.abs(card_np[2] - cpu_np[2])[both].max(initial=0.0))
+    same_count = np.array_equal(valid_c.sum(1), valid_h.sum(1))
+    dxyv = dscore = 0.0
+    matched = same_count
+    for i in range(valid_h.shape[0]) if same_count else ():
+        xyv_c, xyv_h = card_np[0][i][valid_c[i]], cpu_np[0][i][valid_h[i]]
+        sc_c, sc_h = card_np[2][i][valid_c[i]], cpu_np[2][i][valid_h[i]]
+        free = list(range(len(xyv_h)))
+        for j in range(len(xyv_c)):
+            d = [float(np.abs(xyv_c[j] - xyv_h[k]).max()) for k in free]
+            best = int(np.argmin(d))
+            dxyv = max(dxyv, d[best])
+            dscore = max(dscore, float(abs(sc_c[j] - sc_h[free[best]])))
+            free.pop(best)
     counters = [np.asarray(a).tolist() for a in card_np[4:]]
-    same_counters = all(np.array_equal(a, b)
-                        for a, b in zip(card_np[4:], cpu_np[4:]))
+    same_counters = (all(np.array_equal(a, b)
+                         for a, b in zip(card_np[4:6], cpu_np[4:6]))
+                     and np.abs(card_np[6].astype(np.int64)
+                                - cpu_np[6].astype(np.int64)).max() <= 1)
+    same_slots = np.array_equal(valid_c, valid_h)
     print(f'{label}, card vs CPU decode of {valid_h.shape[0]} images: '
           f'valid poses {valid_c.sum(1).tolist()} card, '
-          f'{valid_h.sum(1).tolist()} CPU; max|dxyv| {dxyv:.3e} (limit '
-          f'1e-3), max|dscore| {dscore:.3e} (limit 1e-4); overflow counters '
-          f'(caf, cif, poses) card {counters}, equal: {same_counters}',
-          flush=True)
-    if not (same_valid and same_counters and dxyv <= 1e-3
-            and dscore <= 1e-4):
+          f'{valid_h.sum(1).tolist()} CPU (same slots: {same_slots}); poses '
+          f'matched one to one, max|dxyv| {dxyv:.3e} (limit 1e-3), '
+          f'max|dscore| {dscore:.3e} (limit 1e-4); overflow counters (caf, '
+          f'cif, poses) card {counters}, CPU '
+          f'{[np.asarray(a).tolist() for a in cpu_np[4:]]}, agree: '
+          f'{same_counters}', flush=True)
+    if not (matched and same_counters and dxyv <= 1e-3 and dscore <= 1e-4):
         raise AssertionError(f'{label}: card and CPU decodes differ')
 
 
@@ -516,9 +644,12 @@ def serve(port, card: str) -> dict:
           f'({syncs / 3:.1f} per batch)', flush=True)
     if launches < 3:
         raise AssertionError(f'main path launched cif_hr {launches} times')
-    if chain_calls != 3 * len(SN2K16_CHAINS) or chain_kernels != 3 * 3 * 13:
+    want_kernels = 3 * KERNELS_PER_BLOCK * SN2K16_BLOCKS
+    if (chain_calls != 3 * len(SN2K16_CHAINS)
+            or chain_kernels != want_kernels):
         raise AssertionError(f'main path ran pair_chain {chain_calls} times '
-                             f'({chain_kernels} kernels), want 9 (117)')
+                             f'({chain_kernels} kernels), want 9 '
+                             f'({want_kernels})')
     # the decode at its budgets, held to the CPU decode on two served images
     fields, on_card = decoded[0]
     hold_card_to_cpu(port, predictor.decoder, [t[:2] for t in on_card],
@@ -639,12 +770,15 @@ def main() -> int:
           f'{time.perf_counter() - start:.2f} s', flush=True)
     for name in KERNELS:
         for line in logs[name].splitlines():
-            if 'registers' in line or 'spill' in line or 'smem' in line:
+            if any(k in line for k in ('registers', 'spill', 'smem',
+                                       'arning', 'wgmma')):
                 print(f'  {name}: {line.strip()}', flush=True)
+    sass_check(port)
 
     phase('kernels against plain versions')
     k1 = check_cif_hr(port.cif_hr)
     k2 = check_pair_chain(port)
+    check_wide_f32(port)
 
     phase('golden decode')
     check_golden_decode(port)

@@ -22,14 +22,19 @@ whole-image ``_chain_math`` (``pallas_pair_chain.py:94-159``, the
 tensors only; a CUDA tensor launches the kernel or raises.  The Pallas
 kernel's row bands and halos are a device of the TPU's VMEM and are not
 carried over: the kernel computes the whole-image SAME semantics that the
-banded kernel reproduces.
+banded kernel reproduces.  ``launch_plan`` chooses the kernel's tiles,
+rings, shared memory and grids in Python; ``expand_tile_pixels``,
+``project_tile_pixels`` and ``cta_units`` map them to pixels and units as
+the kernel does, for the CPU tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, NamedTuple, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -38,13 +43,15 @@ from .. import kernels
 from ..models.base import BN_EPSILON
 
 # chain calls of the CUDA kernel, counted by its wrapper; each call launches
-# three CUDA kernels per block (CUDA_LAUNCHES)
+# two CUDA kernels per block (CUDA_LAUNCHES)
 KERNEL_LAUNCHES = 0
 CUDA_LAUNCHES = 0
 
-# the kernel's tiles: weights and per-channel vectors are padded to these
-K_STEP = 64      # the K padding of W1, W2 (a multiple of the kernel's tiles)
-N_TILE = 128     # output channels of one tile
+# the packed layouts: W1, W2 are (Np, Kp) with K padded to the kernel's
+# 64-deep K chunks and N to a multiple of 16 (t's row pitch, 32 bytes in
+# bf16); vec and dwk are padded to Np
+K_STEP = 64
+N_STEP = 16
 
 
 class BlockParams(NamedTuple):
@@ -141,14 +148,15 @@ class PackedChain(NamedTuple):
     ``w1``: (n, Np, Kp) — per block ``W1[0::2]`` and ``W1[1::2]``
     transposed to (out, in) and laid out along K as the kernel reads the
     pair: with ``o = q % 2``, column ``o + k`` holds the row of ``a[q + k]``
-    and column ``q + 2 o + k`` that of ``b[q + k]`` (so that the kernel's
-    2-channel copies stay aligned where q is odd; the other columns are
+    and column ``q + 2 o + k`` that of ``b[q + k]`` (the kernel's operand
+    is [a[q - o:], b[q - o:]], so that each two-channel word of the pair
+    lands on a word of the operand where q is odd; the other columns are
     zero); ``w2``: (n, Np, Kp), W2 transposed; both in the storage type,
-    zero-padded to ``Kp`` (``C + 2 o`` rounded up to ``K_STEP``) and ``Np``
-    (``C`` rounded up to ``N_TILE``).  ``vec``: (n, 6, Np) float32
-    rows s1, o1, sdw, odw, s2, o2; ``dwk``: (n, 25, Np) float32 depthwise
-    taps, row ``5 * dy + dx``; both zero-padded.  ``blocks`` keeps the
-    float32 ``BlockParams`` for the plain version."""
+    zero-padded to ``Kp`` (``C + 2 o`` rounded up to ``K_STEP``) and
+    ``Np`` (``C`` rounded up to ``N_STEP``).  ``vec``:
+    (n, 6, Np) float32 rows s1, o1, sdw, odw, s2, o2; ``dwk``: (n, 25, Np)
+    float32 depthwise taps, row ``5 * dy + dx``; both zero-padded.
+    ``blocks`` keeps the float32 ``BlockParams`` for the plain version."""
 
     blocks: List[BlockParams]
     w1: torch.Tensor
@@ -175,7 +183,7 @@ def pack(blocks: Sequence[BlockParams], dtype: torch.dtype,
     device = torch.device(device) if device is not None else blocks[0].s1.device
     q = c // 2
     o = q % 2
-    kp, np_ = _round_up(c + 2 * o, K_STEP), _round_up(c, N_TILE)
+    kp, np_ = _round_up(c + 2 * o, K_STEP), _round_up(c, N_STEP)
     n = len(blocks)
     w1 = torch.zeros(n, np_, kp, dtype=torch.float32, device=device)
     w2 = torch.zeros_like(w1)
@@ -198,6 +206,220 @@ def pack(blocks: Sequence[BlockParams], dtype: torch.dtype,
                        channels=c, dtype=dtype)
 
 
+# ------------------------------------------------------------ launch plan
+MAX_SMEM = 232448     # dynamic shared memory of one block on sm_90
+SM_SMEM = 233472      # shared memory of one SM; each block reserves 1 KB
+N_SMS = 132           # SMs of an H100 SXM
+GEMM_N = (176, 256)   # the bf16 kernels' wgmma N (output channels of a tile)
+F32_N = 128           # the f32 kernels' output channels of a tile
+
+
+class LaunchPlan(NamedTuple):
+    """How ``csrc/pair_chain.cu`` runs one chain: tiles, rings, shared
+    memory and grids, for one width, storage type and image size.  The C
+    entry points take it as an int32 array in this field order and
+    validate it.
+
+    bfloat16: one producer warpgroup brings every operand by TMA or bulk
+    copy through rings of ``*_stages`` (weights), ``halo_stages`` (t's
+    haloed tiles) and ``slab_stages`` (the pair's pixels), and ``*_groups``
+    consumer warpgroups of 64 pixels each run ``wgmma``, so a tile has
+    ``64 * groups`` pixels; a unit of work is (pixel tile, output tile of
+    ``n_tile`` channels), and ``*_grid`` persistent CTAs take contiguous
+    runs of units (``cta_units``).  The expand tiles are runs of
+    consecutive pixels, whose slabs hold whole rows of a and b, or with
+    ``slab_half`` each row from channel q - q % 2 on; the project tiles are
+    ``tile_h`` x ``tile_w`` pixels of one image.  float32 (the parity
+    check, CUDA-core FMAs): ``*_groups`` and the slab fields are 0, one CTA
+    of 256 threads per tile and all output tiles, no units."""
+
+    kp: int
+    np: int
+    n_tile: int
+    n_tiles: int
+    expand_groups: int
+    expand_rows: int
+    expand_stages: int
+    expand_tiles: int
+    expand_grid: int
+    expand_smem: int
+    project_groups: int
+    project_rows: int
+    project_stages: int
+    tile_h: int
+    tile_w: int
+    tiles_y: int
+    tiles_x: int
+    halo_stages: int
+    project_tiles: int
+    project_grid: int
+    project_smem: int
+    slab_half: int
+    slab_stages: int
+
+
+def _bf16_common_smem(np_, n_tile, stages):
+    """Bytes: 1 KB to align the base, the weight ring, the epilogue's scale
+    and bias (2 x np float32), the barriers."""
+    return 1024 + stages * n_tile * 128 + 8 * np_ + 256
+
+
+def _slab_from(c, slab_half):
+    q = c // 2
+    return q - q % 2 if slab_half else 0
+
+
+def bf16_expand_smem(groups, np_, n_tile, stages, c, slab_half, slab_stages):
+    """The common part plus each consumer group's ring of pair slabs: 64
+    pixels of a and of b from channel ``_slab_from`` on, 128-byte aligned."""
+    slab = _round_up(256 * (c - _slab_from(c, slab_half)), 128)
+    return (_bf16_common_smem(np_, n_tile, stages)
+            + groups * slab_stages * slab)
+
+
+def bf16_project_smem(groups, kp, np_, n_tile, stages, tile_h, tile_w,
+                      halo_stages):
+    """The common part plus the resident operand (64 * groups pixels x kp,
+    128-byte swizzled) and the ring of t's haloed tiles (64 channels of
+    (tile_h + 4) x (tile_w + 4) pixels each, then the chunk's 25 taps, sdw
+    and odw as 27 x 64 float32; 1 KB aligned)."""
+    halo = _round_up(128 * (tile_h + 4) * (tile_w + 4) + 27 * 64 * 4, 1024)
+    return (_bf16_common_smem(np_, n_tile, stages) + 128 * groups * kp
+            + halo_stages * halo)
+
+
+def f32_smem(rows, kp, stages, tile_w=None):
+    """The f32 kernels: the operand (rows x (kp + 4)), then a region for
+    the weight ring of ``stages`` 128 x 36 tiles or, in project_kernel
+    (``tile_w`` given), the two stencil buffers if larger."""
+    ring = stages * F32_N * 36 * 4
+    stencil = 0 if tile_w is None else \
+        2 * (12 * (tile_w + 4) * 20 * 4 + 25 * 16 * 4 + 2 * 16 * 4)
+    return rows * (kp + 4) * 4 + max(ring, stencil)
+
+
+def _f32_stages(rows, kp, tile_w=None):
+    """Three weight tiles in flight, unless that leaves an SM fewer CTAs
+    (two at most, the register budget)."""
+    def ctas(stages):
+        return min(2, SM_SMEM // (f32_smem(rows, kp, stages, tile_w) + 1024))
+    return 3 if ctas(3) >= ctas(2) else 2
+
+
+def _tile_shapes(rows, h, w):
+    """Project tile shapes of at most ``rows`` pixels and an even width
+    (the bf16 stencil takes pixels in pairs), fewest tiles first, then the
+    smallest halo: for each height, the narrowest width that keeps the
+    count of tiles across the image."""
+    shapes = []
+    for th in range(1, min(h, rows) + 1):
+        widest = min(_round_up(w, 2), rows // th) // 2 * 2
+        if widest == 0:
+            break
+        nx = -(-w // widest)
+        tw = _round_up(-(-w // nx), 2)
+        shapes.append(((-(-h // th)) * nx, (th + 4) * (tw + 4), th, tw))
+    return [(th, tw) for *_, th, tw in sorted(shapes)]
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(c: int, dtype: torch.dtype, batch: int, h: int, w: int,
+                n_sms: int = N_SMS) -> LaunchPlan:
+    """The kernel's plan for a chain of half-width ``c`` on (batch, h, w)
+    in ``dtype``; raises ValueError where no plan fits a block's shared
+    memory (no width of sn2k16, sn2k30 or sn2k44)."""
+    if c <= 0 or c % 2 or min(batch, h, w) <= 0:
+        raise ValueError(f'pair_chain: no plan for width {c} on '
+                         f'({batch}, {h}, {w})')
+    kp = _round_up(c + 2 * (c // 2 % 2), K_STEP)
+    np_ = _round_up(c, N_STEP)
+    m = batch * h * w
+    if dtype == torch.float32:
+        rows = 64 if f32_smem(64, kp, 2, 8) <= MAX_SMEM else 32
+        tw = rows // 8
+        stages_e, stages_p = _f32_stages(rows, kp), _f32_stages(rows, kp, tw)
+        smem_e, smem_p = (f32_smem(rows, kp, stages_e),
+                          f32_smem(rows, kp, stages_p, tw))
+        if smem_e > MAX_SMEM or smem_p > MAX_SMEM:
+            raise ValueError(f'pair_chain: width {c} in float32 does not '
+                             f'fit a block')
+        ty, tx = -(-h // 8), -(-w // tw)
+        return LaunchPlan(kp, np_, F32_N, -(-np_ // F32_N), 0, rows,
+                          stages_e, -(-m // rows), -(-m // rows), smem_e,
+                          0, rows, stages_p, 8, tw, ty, tx, 0,
+                          batch * ty * tx, batch * ty * tx, smem_p, 0, 0)
+    if dtype != torch.bfloat16:
+        raise ValueError(f'pair_chain: no plan for {dtype}')
+    # the wgmma width that pads Np least (ties: the wider) among those whose
+    # kernels fit a block
+    for n_tile in sorted(GEMM_N, key=lambda n: (-(-np_ // n) * n, -n)):
+        # whole rows in the slabs where they fit, else rows' second halves
+        # where those start 16-byte aligned
+        halves = (0, 1) if (c // 2 - c // 2 % 2) % 8 == 0 and c % 8 == 0 \
+            else (0,)
+        expand = next(((g, s, half, ss) for half in halves for g in (2, 1)
+                       for ss in (2, 1) for s in (4, 3, 2)
+                       if bf16_expand_smem(g, np_, n_tile, s, c, half, ss)
+                       <= MAX_SMEM), None)
+        project = next(((g, s, th, tw, hs) for g in (2, 1)
+                        for th, tw in _tile_shapes(64 * g, h, w)
+                        for hs in (3, 2, 1) for s in (4, 3, 2)
+                        if bf16_project_smem(g, kp, np_, n_tile, s, th, tw, hs)
+                        <= MAX_SMEM), None)
+        if expand is not None and project is not None:
+            break
+    else:
+        raise ValueError(f'pair_chain: width {c} in bfloat16 does not fit '
+                         f'a block')
+    n_tiles = -(-np_ // n_tile)
+    ge, se, slab_half, slab_stages = expand
+    gp, sp, th, tw, hs = project
+    tiles_e = -(-m // (64 * ge))
+    ty, tx = -(-h // th), -(-w // tw)
+    tiles_p = batch * ty * tx
+    return LaunchPlan(
+        kp, np_, n_tile, n_tiles, ge, 64 * ge, se, tiles_e,
+        min(tiles_e * n_tiles, n_sms),
+        bf16_expand_smem(ge, np_, n_tile, se, c, slab_half, slab_stages),
+        gp, 64 * gp, sp, th, tw, ty, tx, hs, tiles_p,
+        min(tiles_p * n_tiles, n_sms),
+        bf16_project_smem(gp, kp, np_, n_tile, sp, th, tw, hs), slab_half,
+        slab_stages)
+
+
+def cta_units(units: int, grid: int):
+    """The contiguous run of units each persistent CTA takes, as the
+    kernels compute it: [b * units // grid, (b + 1) * units // grid)."""
+    return [(b * units // grid, (b + 1) * units // grid)
+            for b in range(grid)]
+
+
+def expand_tile_pixels(plan: LaunchPlan, batch: int, h: int, w: int):
+    """(expand_tiles, expand_rows) flat pixel index of each GEMM row of
+    each expand tile, -1 for rows past the last pixel."""
+    m = batch * h * w
+    idx = np.arange(plan.expand_tiles * plan.expand_rows).reshape(
+        plan.expand_tiles, plan.expand_rows)
+    return np.where(idx < m, idx, -1)
+
+
+def project_tile_pixels(plan: LaunchPlan, batch: int, h: int, w: int):
+    """(project_tiles, project_rows) flat pixel index of each GEMM row of
+    each project tile, -1 for rows outside the tile or the image.  Tile
+    ``(img * tiles_y + ty) * tiles_x + tx``, row ``r`` is pixel
+    ``(ty * tile_h + r // tile_w, tx * tile_w + r % tile_w)``."""
+    tile = np.arange(plan.project_tiles)[:, None]
+    r = np.arange(plan.project_rows)[None, :]
+    tx = tile % plan.tiles_x
+    ty = tile // plan.tiles_x % plan.tiles_y
+    img = tile // (plan.tiles_x * plan.tiles_y)
+    y = ty * plan.tile_h + r // plan.tile_w
+    x = tx * plan.tile_w + r % plan.tile_w
+    inside = (r < plan.tile_h * plan.tile_w) & (y < h) & (x < w)
+    return np.where(inside, (img * h + y) * w + x, -1)
+
+
+# ------------------------------------------------------------------ kernel
 _LIB = None
 _ENTRY = {torch.bfloat16: 'pair_chain_bf16', torch.float32: 'pair_chain_f32'}
 
@@ -209,10 +431,15 @@ def _lib():
         for name in _ENTRY.values():
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + \
-                [ctypes.c_void_p]
+                [ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_operand(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
@@ -231,13 +458,16 @@ def _check_operand(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
                          f'{t.device} does not match a')
     if not t.is_contiguous():
         raise ValueError(f'pair_chain: {name} must be contiguous')
+    if t.data_ptr() % 16:
+        raise ValueError(f'pair_chain: {name} must start on a 16-byte '
+                         f'boundary')
 
 
 def pair_chain(a: torch.Tensor, b: torch.Tensor, chain: PackedChain):
     """The CUDA kernel: the chain on (B, H, W, C) bfloat16 or float32 CUDA
     tensors, computed in their type with float32 accumulation, with the
     parameters ``pack`` laid out for that type and device.  Returns the
-    output pair.  Launches three kernels per block on the current stream
+    output pair.  Launches two kernels per block on the current stream
     without synchronizing."""
     global KERNEL_LAUNCHES, CUDA_LAUNCHES
     _check_operand('a', a, None)
@@ -253,25 +483,26 @@ def pair_chain(a: torch.Tensor, b: torch.Tensor, chain: PackedChain):
     kp = chain.w1.shape[2]
     if bsz * h * w * kp >= 2 ** 31 or bsz * h * w == 0:
         raise ValueError(f'pair_chain: shape {tuple(a.shape)} out of range')
-    out_a, out_b = torch.empty_like(a), torch.empty_like(b)
-    tmp_a = torch.empty_like(a) if n > 1 else out_a
-    tmp_b = torch.empty_like(b) if n > 1 else out_b
-    t = torch.empty((bsz * h * w, kp), dtype=a.dtype, device=a.device)
     with torch.cuda.device(a.device):
+        plan = launch_plan(c, a.dtype, bsz, h, w, _sm_count(a.device))
+        out_a, out_b = torch.empty_like(a), torch.empty_like(b)
+        tmp_a = torch.empty_like(a) if n > 1 else out_a
+        tmp_b = torch.empty_like(b) if n > 1 else out_b
+        t = torch.empty((bsz * h * w, plan.np), dtype=a.dtype,
+                        device=a.device)
+        plan_arr = (ctypes.c_int * len(plan))(*plan)
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(_lib(), _ENTRY[a.dtype])(
             a.data_ptr(), b.data_ptr(), out_a.data_ptr(), out_b.data_ptr(),
             tmp_a.data_ptr(), tmp_b.data_ptr(), t.data_ptr(),
             chain.w1.data_ptr(), chain.w2.data_ptr(), chain.vec.data_ptr(),
-            chain.dwk.data_ptr(), n, bsz, h, w, c, stream)
-    if rc == -1:
-        raise ValueError(f'pair_chain: width {c} in {a.dtype} needs more '
-                         f'shared memory than a block has')
+            chain.dwk.data_ptr(), n, bsz, h, w, c,
+            ctypes.addressof(plan_arr), stream)
     if rc != 0:
-        raise RuntimeError(f'pair_chain: kernel launch failed with CUDA '
-                           f'error {rc}')
+        raise RuntimeError(f'pair_chain: kernel launch failed with code '
+                           f'{rc} (plan {plan})')
     KERNEL_LAUNCHES += 1
-    CUDA_LAUNCHES += 3 * n
+    CUDA_LAUNCHES += 2 * n
     return out_a, out_b
 
 

@@ -158,11 +158,12 @@ def test_plain_matches_jax_pallas_interpret(n_bands):
 
 def emulate_kernel(a, b, chain: pc.PackedChain):
     """``csrc/pair_chain.cu``'s arithmetic from the packed operands, in
-    float32: expand_kernel's operand [a[q - o:], b[q - o:]] (o = q % 2)
-    against the packed W1, t at pitch Kp with zero padding channels, the
-    stencil over t padded with zeros, then W2."""
+    float32: expand_kernel's operand [a[q - o:], b[q - o:]] (o = q % 2, so
+    1 here) against the packed W1, t at pitch Np with zero padding channels,
+    the stencil over t padded with zeros, u's columns from C to Kp exact
+    zeros, then W2."""
     c = chain.channels
-    q, kp = c // 2, chain.w1.shape[2]
+    q, np_, kp = c // 2, chain.w1.shape[1], chain.w1.shape[2]
     o = q % 2
     _, h, w, _ = a.shape
     for i in range(len(chain.blocks)):
@@ -170,13 +171,14 @@ def emulate_kernel(a, b, chain: pc.PackedChain):
         x = torch.cat([a[..., q - o:], b[..., q - o:]], -1)
         w1 = chain.w1[i, :, :c + 2 * o].float()
         assert torch.count_nonzero(w1[:, [0, q + 1]] if o else w1[:, :0]) == 0
-        t = torch.relu(x @ w1.t() * s1 + o1)[..., :kp]
-        assert torch.count_nonzero(t[..., c:]) == 0
-        taps = chain.dwk[i, :, :kp].reshape(5, 5, kp)
+        assert torch.count_nonzero(chain.w1[i, :, c + 2 * o:]) == 0
+        t = torch.relu(x @ w1.t() * s1 + o1)
+        assert t.shape[-1] == np_ and torch.count_nonzero(t[..., c:]) == 0
+        taps = chain.dwk[i].reshape(5, 5, np_)
         tp = F.pad(t, (0, 0, 2, 2, 2, 2))
         u = sum(tp[:, dy:dy + h, dx:dx + w] * taps[dy, dx]
                 for dy in range(5) for dx in range(5))
-        u = u * sdw[:kp] + odw[:kp]
+        u = F.pad((u * sdw + odw)[..., :c], (0, kp - c))
         v = torch.relu(u @ chain.w2[i].float().t() * s2 + o2)
         a, b = pc.interleave(a[..., :q], b[..., :q]), v[..., :c]
     return a, b
@@ -187,11 +189,46 @@ def test_packed_layout_computes_the_chain():
     1e-5 in float32."""
     _, blocks = chain_blocks()
     chain = pc.pack(blocks, torch.float32)
-    assert chain.w1.shape == (3, pc.N_TILE, pc.K_STEP)
+    assert chain.w1.shape == (3, 2 * pc.N_STEP, pc.K_STEP)
     a, b = (torch.from_numpy(x) for x in random_pair(3))
     want = pc.pair_chain_plain(a, b, blocks, torch.float32)
     for w, g in zip(want, emulate_kernel(a, b, chain)):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+# every stage half-width of sn2k16 (174, 348, 696) and sn2k30/44 (256, 512,
+# 1024), on sn2k16's three stage sides at 641 px and a small odd side
+@pytest.mark.parametrize('dtype', ['bfloat16', 'float32'])
+@pytest.mark.parametrize('c', [174, 348, 696, 256, 512, 1024])
+def test_launch_plan_fits_and_covers_every_pixel_once(c, dtype):
+    for bsz, side in ((8, 161), (8, 81), (8, 41), (3, 13)):
+        plan = pc.launch_plan(c, getattr(torch, dtype), bsz, side, side)
+        assert plan.expand_smem <= pc.MAX_SMEM
+        assert plan.project_smem <= pc.MAX_SMEM
+        assert plan.np % pc.N_STEP == 0 and plan.np - c < pc.N_STEP
+        m = bsz * side * side
+        for tiles in (pc.expand_tile_pixels(plan, bsz, side, side),
+                      pc.project_tile_pixels(plan, bsz, side, side)):
+            hits = np.bincount(tiles[tiles >= 0], minlength=m)
+            assert hits.shape == (m,) and (hits == 1).all(), (side, plan)
+        if dtype == 'bfloat16':
+            assert plan.n_tile in pc.GEMM_N
+            assert plan.n_tiles * plan.n_tile >= plan.np
+            for tiles, grid in ((plan.expand_tiles, plan.expand_grid),
+                                (plan.project_tiles, plan.project_grid)):
+                units = tiles * plan.n_tiles
+                runs = pc.cta_units(units, grid)
+                assert grid <= pc.N_SMS and runs[0][0] == 0
+                assert runs[-1][1] == units
+                assert all(r[1] == s[0] for r, s in zip(runs, runs[1:]))
+                assert all(r[1] > r[0] for r in runs)
+    # the sn2k16 plans: weight tiles shared by 128 pixels in both GEMMs at
+    # stages 2 and 3, wgmma N = 176, and tiles without the 8x8 fringe
+    if dtype == 'bfloat16' and c in (174, 348):
+        plan = pc.launch_plan(c, torch.bfloat16, 8, 161, 161)
+        assert plan.expand_rows == plan.project_rows == 128
+        assert plan.n_tile == 176
+        assert plan.project_tiles * 128 < 1.03 * 8 * 161 * 161
 
 
 def test_apply_chain_on_cpu_is_the_plain_version():
