@@ -13,8 +13,12 @@ Phases, in order; any failure raises and exits non-zero:
    loads), UBLKCP (bulk copies) and HMMA (mma.sync), failing unless both
    bf16 GEMM kernels run HGMMA, load by TMA or bulk copy and run no HMMA;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the bench shapes, with timings (CUDA events) and its bound: K1 on dense
-   and sparse synthetic cells; K2 on sn2k16's three stride-1 chains at
+   the bench shapes, with timings (CUDA events) and its bound: K1 (its
+   two CUDA kernels, ``bin_kernel`` and ``splat_kernel``) on dense and
+   sparse synthetic cells (timed), on all-masked cells, a band of rows unclipped, 6561 cells on a 641x641
+   grid, a 1x1 grid, an odd 37x53 grid and windows over the whole grid,
+   with pass 1's masks held bit for bit to ``tile_bins_plain`` and two
+   launches to identical bits; K2 on sn2k16's three stride-1 chains at
    batch 8 in bf16 and f32, also timed against the same blocks run as the
    canonical modules, on sn2k30's stage-4 chain (C = 1024, 5 blocks,
    41x41, batch 2) and on a small odd image (13x13, every tile at an edge);
@@ -25,14 +29,17 @@ Phases, in order; any failure raises and exits non-zero:
 5. serve: ShuffleNetV2K-16 (CIF + CAF heads, seeded random weights, bf16)
    serves 3 distinct batches of 8 images at 641x641 through ``Predictor``,
    whose forward is the pair plan (``Model.apply_fast``), counting kernel
-   launches and host syncs; the served fields held against the canonical
-   graph (``Model.apply``) in bf16, and in f32 on two images; two served
+   launches (2 CUDA kernels per K1 call, 2 per K2 block) and host syncs;
+   the served fields held against the canonical graph
+   (``Model.apply``) in bf16, and in f32 on two images; two served
    images' decode (at the budgets) held against the CPU decode of the same
    fields; then per-image timings;
 6. kernels at the main path's inputs: each kernel against its plain version
    and timed on the very tensors the serve phase handed it;
-7. with ``--profile``: one served batch under ``torch.profiler``, the
-   device's busy share and the ops that take its time;
+7. with ``--profile``: the device time per call of K1's two kernels and
+   K2's two (phases 3 and 6), and one served batch under
+   ``torch.profiler``, the device's busy share and the ops that take its
+   time;
 8. a ``{"kernels": [...]}`` line, the card's name and power limit, then the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -156,61 +163,135 @@ def splat_bound_ms(v, x, y, sigma, *, out_hw, spacing, truncate,
             else 'operations', n_bytes, ops)
 
 
-def measure_cif_hr(cif_hr, name: str, inputs, kw) -> dict:
-    """K1 against its plain version on ``inputs``, then both timed."""
-    got = cif_hr.cif_hr_accumulate(*inputs, **kw)
+def hold_cif_hr(cif_hr, name: str, inputs, kw) -> float:
+    """K1 on ``inputs`` against its plain version, and returns
+    max|kernel - plain|.  Also: pass 1's masks (``cif_hr_tile_bins``) equal
+    ``tile_bins_plain`` bit for bit, and a second launch gives the same
+    bits.  Limit 2e-5 on max|kernel - plain| when clipped, on
+    max|kernel - plain| / (1 + |plain|) when not (sums above 1)."""
+    got = cif_hr.cif_hr_tile_bins(*inputs, **_bin_kw(kw))
+    masks = cif_hr.tile_bins_plain(*inputs, **_bin_kw(kw))
+    if not torch.equal(got, masks):
+        raise AssertionError(f'cif_hr {name}: bin_kernel masks differ from '
+                             f'tile_bins_plain in '
+                             f'{int((got != masks).sum())} words')
+    first = cif_hr.cif_hr_accumulate(*inputs, **kw)
+    again = cif_hr.cif_hr_accumulate(*inputs, **kw)
     want = cif_hr.accumulate_plain(*inputs, **kw)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    print(f'cif_hr {name}: shape {tuple(got.shape)} max|kernel - plain| '
-          f'{err:.3e} (limit 2e-5), max value {float(want.max()):.4f}',
+    if not torch.equal(first, again):
+        raise AssertionError(f'cif_hr {name}: two launches differ')
+    err = float((first - want).abs().max())
+    clip = kw.get('clip', True)
+    worst = err if clip else float(((first - want).abs()
+                                    / (1.0 + want.abs())).max())
+    b, f, n = inputs[0].shape
+    kept = int((inputs[0] != 0).sum())
+    per_tile = _popcount(masks) / max(1, masks.shape[2] * kept)
+    print(f'cif_hr {name} [B={b} F={f} N={n} {tuple(first.shape[2:])}]: '
+          f'max|kernel - plain| {err:.3e}'
+          f'{"" if clip else f", /(1+|plain|) {worst:.3e}"} (limit 2e-5), '
+          f'max value {float(want.max()):.4f}; masks equal tile_bins_plain, '
+          f'the same bits on a second launch; share of kept cells binned per '
+          f'{cif_hr.TILE[0]}x{cif_hr.TILE[1]} tile: {per_tile:.4f}',
           flush=True)
-    if not err <= 2e-5:
-        raise AssertionError(f'cif_hr kernel disagrees ({name}): {err}')
+    if not worst <= 2e-5:
+        raise AssertionError(f'cif_hr kernel disagrees ({name}): {worst}')
+    if not clip and float(want.max()) <= 1.0:
+        raise AssertionError(f'cif_hr {name}: unclipped sums stay below 1')
+    return err
+
+
+def _bin_kw(kw):
+    return {k: v for k, v in kw.items() if k != 'clip'}
+
+
+def _popcount(masks):
+    m = masks.long() & 0xFFFFFFFF
+    return sum(int(((m >> i) & 1).sum()) for i in range(32))
+
+
+def measure_cif_hr(cif_hr, name: str, inputs, kw) -> dict:
+    """K1 held to its plain version on ``inputs`` (``hold_cif_hr``), then
+    timed beside the plain version."""
+    err = hold_cif_hr(cif_hr, name, inputs, kw)
     ms = cuda_ms(lambda: cif_hr.cif_hr_accumulate(*inputs, **kw))
     plain = cuda_ms(lambda: cif_hr.accumulate_plain(*inputs, **kw))
     bound, bound_by, n_bytes, ops = splat_bound_ms(*inputs, **kw)
-    b, f, n = inputs[0].shape
-    hh, wh = kw['out_hw']
-    print(f'cif_hr {name} [B={b} F={f} N={n} {hh}x{wh}]: kernel median '
-          f'{ms[0]:.4f} ms [min {ms[1]:.4f}, max {ms[2]:.4f}], plain '
-          f'{plain[0]:.4f} ms [min {plain[1]:.4f}, max {plain[2]:.4f}], '
-          f'bound {bound:.4f} ms by {bound_by} ({n_bytes} B, '
-          f'{ops:.4g} f32 ops, {int((inputs[0] != 0).sum())} cells kept), '
-          f'no single PyTorch call computes it', flush=True)
+    print(f'cif_hr {name}: kernel median {ms[0]:.4f} ms [min {ms[1]:.4f}, '
+          f'max {ms[2]:.4f}] at tile {cif_hr.TILE}, plain {plain[0]:.4f} ms [min {plain[1]:.4f}, max '
+          f'{plain[2]:.4f}], bound {bound:.4f} ms by {bound_by} ({n_bytes} '
+          f'B, {ops:.4g} f32 ops, {int((inputs[0] != 0).sum())} cells kept; '
+          f'{100 * bound / ms[0]:.1f}% of it), no single PyTorch call '
+          f'computes it', flush=True)
     return dict(ms=ms[0], plain_ms=plain[0], bound_ms=bound,
                 bound_by=bound_by, max_abs_err=err)
 
 
-def check_cif_hr(cif_hr) -> dict:
-    """K1 against its plain version on the card at the bench shape."""
+def profile_cif_hr(cif_hr, name: str, inputs, kw) -> None:
+    """Device time per call of K1's two CUDA kernels (bin_kernel,
+    splat_kernel), from ``torch.profiler`` over 10 calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            cif_hr.cif_hr_accumulate(*inputs, **kw)
+        torch.cuda.synchronize()
+    parts = []
+    for e in prof.key_averages():
+        us = getattr(e, 'self_device_time_total',
+                     getattr(e, 'self_cuda_time_total', 0.0))
+        found = re.search(r'\b(bin_kernel|splat_kernel)\b', e.key)
+        if us and found:
+            parts.append(f'{found.group(0)} {us / e.count:.2f} us '
+                         f'({e.count} calls)')
+    print(f'cif_hr {name} per kernel call: {", ".join(sorted(parts))}',
+          flush=True)
+
+
+def check_cif_hr(cif_hr, profile_on: bool = False) -> dict:
+    """K1 against its plain version on the card: at the bench shape on
+    dense and sparse cells (timed), then on all-masked cells, a band of
+    rows unclipped, 6561 cells (compaction off) on a 641 x 641 grid, a 1 x 1
+    grid, an odd 37 x 53 grid and windows that cover the whole grid."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(0)
     kw = dict(out_hw=(321, 321), spacing=2.0, truncate=1.0)
-    result = {kind: measure_cif_hr(cif_hr, kind, splat_inputs(kind, rng), kw)
-              for kind in ('dense', 'sparse')}
-    max_err = max(r['max_abs_err'] for r in result.values())
+    result = {}
+    for kind in ('dense', 'sparse'):
+        inputs = splat_inputs(kind, rng)
+        result[kind] = measure_cif_hr(cif_hr, kind, inputs, kw)
+        if profile_on:
+            profile_cif_hr(cif_hr, kind, inputs, kw)
+    errs = [r['max_abs_err'] for r in result.values()]
 
     # all cells masked: exact zeros
     v, x, y, sigma = splat_inputs('dense', rng)
     zeros = cif_hr.cif_hr_accumulate(torch.zeros_like(v), x, y, sigma, **kw)
     if int(torch.count_nonzero(zeros)) != 0:
         raise AssertionError('cif_hr kernel: all-masked input is not zero')
-    # a band of rows, unclipped
-    band = dict(out_hw=(64, 321), spacing=2.0, truncate=1.0,
-                y_offset_px=100.0, clip=False)
-    heavy = (v * 4.0, x, y, sigma * 3.0)
-    got = cif_hr.cif_hr_accumulate(*heavy, **band)
-    want = cif_hr.accumulate_plain(*heavy, **band)
-    torch.cuda.synchronize()
-    err = float(((got - want).abs() / (1.0 + want.abs())).max())
-    print(f'cif_hr band y_offset=100 clip=False: max value '
-          f'{float(want.max()):.3f}, max|kernel - plain|/(1+|plain|) '
-          f'{err:.3e} (limit 2e-5)', flush=True)
-    if not err <= 2e-5 or float(want.max()) <= 1.0:
-        raise AssertionError(f'cif_hr kernel band case: {err}')
-    result['max_abs_err'] = max_err
+    print('cif_hr all cells masked: exact zeros', flush=True)
+    unclipped = dict(spacing=2.0, truncate=1.0, clip=False)
+    cases = [
+        ('band y_offset=100 clip=False', (v * 4.0, x, y, sigma * 3.0),
+         dict(out_hw=(64, 321), y_offset_px=100.0, **unclipped)),
+        ('6561 cells', splat_inputs('dense', rng, b=2, h=81, w=81),
+         dict(out_hw=(641, 641), spacing=2.0, truncate=1.0)),
+        ('1x1 grid', splat_inputs('dense', rng, b=2, f=3, h=4, w=4),
+         dict(out_hw=(1, 1), spacing=2.0, truncate=1.0)),
+        ('odd grid', splat_inputs('sparse', rng, b=2, f=5, h=9, w=9),
+         dict(out_hw=(37, 53), spacing=2.0, truncate=1.0)),
+        ('whole-grid windows', (v[:2, :4], x[:2, :4], y[:2, :4],
+                                sigma[:2, :4] * 500.0),
+         dict(out_hw=(321, 321), **unclipped)),
+    ]
+    for name, inputs, case_kw in cases:
+        errs.append(hold_cif_hr(cif_hr, name,
+                                tuple(t.contiguous() for t in inputs),
+                                case_kw))
+    result['max_abs_err'] = max(errs)
     return result
 
 
@@ -621,7 +702,7 @@ def serve(port, card: str) -> dict:
         return out
 
     predictor.decoder.batch_decoded = keep
-    port.cif_hr.KERNEL_LAUNCHES = 0
+    port.cif_hr.KERNEL_LAUNCHES = port.cif_hr.CUDA_LAUNCHES = 0
     port.pair_chain.KERNEL_LAUNCHES = port.pair_chain.CUDA_LAUNCHES = 0
     port.common.HOST_SYNCS = 0
     try:
@@ -629,6 +710,7 @@ def serve(port, card: str) -> dict:
     finally:
         del predictor.decoder.batch_decoded
     launches = port.cif_hr.KERNEL_LAUNCHES
+    splat_kernels = port.cif_hr.CUDA_LAUNCHES
     chain_calls = port.pair_chain.KERNEL_LAUNCHES
     chain_kernels = port.pair_chain.CUDA_LAUNCHES
     syncs = port.common.HOST_SYNCS
@@ -639,11 +721,13 @@ def serve(port, card: str) -> dict:
                 if not np.isfinite(ann.data).all():
                     raise AssertionError('non-finite annotation')
     print(f'serve: 3 batches of 8 at 641x641, annotations per image '
-          f'{n_anns}; cif_hr launches {launches}, pair_chain calls '
+          f'{n_anns}; cif_hr calls {launches} ({splat_kernels} CUDA '
+          f'kernels), pair_chain calls '
           f'{chain_calls} ({chain_kernels} CUDA kernels), host syncs {syncs} '
           f'({syncs / 3:.1f} per batch)', flush=True)
-    if launches < 3:
-        raise AssertionError(f'main path launched cif_hr {launches} times')
+    if launches < 3 or splat_kernels != 2 * launches:
+        raise AssertionError(f'main path called cif_hr {launches} times '
+                             f'({splat_kernels} CUDA kernels, want 2 each)')
     want_kernels = 3 * KERNELS_PER_BLOCK * SN2K16_BLOCKS
     if (chain_calls != 3 * len(SN2K16_CHAINS)
             or chain_kernels != want_kernels):
@@ -771,12 +855,13 @@ def main() -> int:
     for name in KERNELS:
         for line in logs[name].splitlines():
             if any(k in line for k in ('registers', 'spill', 'smem',
-                                       'arning', 'wgmma')):
+                                       'arning', 'wgmma', 'entry function')):
                 print(f'  {name}: {line.strip()}', flush=True)
     sass_check(port)
 
     phase('kernels against plain versions')
-    k1 = check_cif_hr(port.cif_hr)
+    profile_on = '--profile' in sys.argv[1:]
+    k1 = check_cif_hr(port.cif_hr, profile_on)
     k2 = check_pair_chain(port)
     check_wide_f32(port)
 
@@ -789,6 +874,8 @@ def main() -> int:
     phase("kernels at the main path's inputs")
     args, kwargs = served['cif_hr_inputs']
     main = measure_cif_hr(port.cif_hr, 'served batch', args, kwargs)
+    if profile_on:
+        profile_cif_hr(port.cif_hr, 'served batch', args, kwargs)
     max_err = max(k1['max_abs_err'], main['max_abs_err'])
     basenet = served['predictor'].model.module.basenet
     chains = []
@@ -811,7 +898,7 @@ def main() -> int:
           f'canonical modules {k2_main["canonical_ms"]:.4f} ms, bound '
           f'{k2_main["bound_ms"]:.4f} ms ({k2_main["bound_by"]})', flush=True)
 
-    if '--profile' in sys.argv[1:]:
+    if profile_on:
         phase('profile')
         profile_batch(served['predictor'], served['images'])
 

@@ -10,12 +10,15 @@ high-resolution accumulator clipped at 1.0.  A 2D Gaussian is separable:
 
 On the card the splat runs on the hand-written kernel ``csrc/cif_hr.cu``
 (``cif_hr_accumulate``), which replaces the TPU kernel
-``openpifpaf_tpu/ops/pallas_cif_hr.py::accumulate_pallas``.  Beside it,
-``accumulate_plain`` is the plain PyTorch version — the profiles and an
-``einsum`` over cells, the translation of ``cif_hr.py:138-161``.  The plain
-version serves CPU tensors only; a CUDA tensor launches the kernel or
-raises.  The kernel computes f32 profiles (like the Pallas kernel), so on
-the card the decode has ``profile_bf16=False`` semantics.
+``openpifpaf_tpu/ops/pallas_cif_hr.py::accumulate_pallas`` with two CUDA
+kernels: ``bin_kernel`` bins each field's cells to output tiles (bitmasks,
+``tile_bins_plain`` is its plain version) and ``splat_kernel`` splats each
+tile from its own cells.  Beside it, ``accumulate_plain`` is the plain
+PyTorch version of the output — the profiles and an ``einsum`` over cells,
+the translation of ``cif_hr.py:138-161``.  The plain versions serve CPU
+tensors only; a CUDA tensor launches the kernel or raises.  The kernel
+computes f32 profiles (like the Pallas kernel), so on the card the decode
+has ``profile_bf16=False`` semantics.
 """
 
 from __future__ import annotations
@@ -28,8 +31,14 @@ import torch
 from .common import masked_top_k
 from .. import kernels
 
-# launches of the CUDA kernel, counted by its wrapper
+# calls of the kernel's wrapper (KERNEL_LAUNCHES) and the CUDA kernels they
+# launch (CUDA_LAUNCHES: bin_kernel and splat_kernel, 2 per call)
 KERNEL_LAUNCHES = 0
+CUDA_LAUNCHES = 0
+# output tile (rows, columns) of the CUDA kernels (TH x TW in
+# csrc/cif_hr.cu): of 32 x 32, 32 x 64, 64 x 32 and 64 x 64 the fastest on
+# the served inputs (PERF.md)
+TILE = (32, 64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,33 +157,102 @@ def accumulate_plain(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return torch.clamp(hr, 0.0, 1.0) if clip else hr
 
 
-def _check_operand(name: str, t: torch.Tensor, shape) -> None:
-    if t.device.type != 'cuda':
-        raise ValueError(f'cif_hr_accumulate: {name} must be a CUDA tensor, '
-                         f'got {t.device}')
-    if t.dtype != torch.float32:
-        raise ValueError(f'cif_hr_accumulate: {name} must be float32, got '
-                         f'{t.dtype}')
-    if t.dim() != 3 or (shape is not None and t.shape != shape):
-        raise ValueError(f'cif_hr_accumulate: {name} must be (B, F, N) like '
-                         f'v, got {tuple(t.shape)}')
-    if not t.is_contiguous():
-        raise ValueError(f'cif_hr_accumulate: {name} must be contiguous')
+def tile_grid(out_hw, tile=TILE):
+    """(tiles down, tiles across) of an (Hh, Wh) grid cut into ``tile``."""
+    (hh, wh), (th, tw) = out_hw, tile
+    return -(-int(hh) // th), -(-int(wh) // tw)
+
+
+def tile_bins_plain(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                    sigma: torch.Tensor, *, out_hw, spacing: float,
+                    truncate: float, y_offset_px: float = 0.0,
+                    tile=TILE) -> torch.Tensor:
+    """Plain version of the kernel's first pass: (B, F, N) cells ->
+    (B, F, tiles, ceil(N / 32)) int32 bitmasks (the bits of the kernel's
+    uint32 words), tiles row-major.  Bit ``c % 32`` of word ``c // 32`` is
+    set when ``v[c] != 0`` and the cell's truncation window, widened by
+    1 px, meets the tile.  Every quantity is the f32 expression the kernel
+    rounds the same way, so at the kernel's ``TILE`` the masks are equal
+    bit for bit; other tiles serve the CPU tests of the binning."""
+    hh, wh = (int(s) for s in out_hw)
+    th, tw = tile
+    ty, tx = tile_grid(out_hw, tile)
+    f32 = dict(dtype=torch.float32, device=v.device)
+    sp = torch.tensor(spacing, **f32)
+    y_off = torch.tensor(y_offset_px, **f32)
+    r0 = torch.arange(ty, device=v.device) * th
+    q0 = torch.arange(tx, device=v.device) * tw
+    r1 = torch.clamp(r0 + th, max=hh) - 1
+    q1 = torch.clamp(q0 + tw, max=wh) - 1
+    y_lo = (r0.float() * sp + y_off) - 1.0
+    y_hi = (r1.float() * sp + y_off) + 1.0
+    x_lo = q0.float() * sp - 1.0
+    x_hi = q1.float() * sp + 1.0
+    ctr = sigma * torch.tensor(truncate, **f32)
+    rows = (((y - ctr)[..., None] <= y_hi) & ((y + ctr)[..., None] >= y_lo)
+            & (v != 0)[..., None])                         # (B, F, N, ty)
+    cols = ((x - ctr)[..., None] <= x_hi) & ((x + ctr)[..., None] >= x_lo)
+    keep = rows[..., :, None] & cols[..., None, :]        # (B, F, N, ty, tx)
+    b, f, n = v.shape
+    words = -(-n // 32)
+    keep = keep.reshape(b, f, n, ty * tx).permute(0, 1, 3, 2)
+    keep = torch.nn.functional.pad(keep, (0, 32 * words - n))
+    weights = 2 ** torch.arange(32, dtype=torch.int64, device=v.device)
+    packed = (keep.reshape(b, f, ty * tx, words, 32).long() * weights).sum(-1)
+    return torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed).int()
+
+
+def _check_operands(who: str, v, x, y, sigma, out_hw) -> None:
+    device, shape = v.device, v.shape
+    for name, t in (('v', v), ('x', x), ('y', y), ('sigma', sigma)):
+        if not t.is_cuda:
+            raise ValueError(f'{who}: {name} must be a CUDA tensor, got '
+                             f'{t.device}')
+        if t.device != device:
+            raise ValueError(f'{who}: {name} on {t.device}, v on {device}')
+        if t.dtype != torch.float32:
+            raise ValueError(f'{who}: {name} must be float32, got {t.dtype}')
+        if t.shape != shape or len(shape) != 3:
+            raise ValueError(f'{who}: {name} must be (B, F, N) like v, got '
+                             f'{tuple(t.shape)}')
+        if not t.is_contiguous():
+            raise ValueError(f'{who}: {name} must be contiguous')
+    if shape[0] * shape[1] > 65535 or tile_grid(out_hw)[0] > 65535:
+        raise ValueError(f'{who}: grid too large for {(*shape[:2], *out_hw)}')
 
 
 _LIB = None
 
 
 def _lib():
+    """The built library, with its entry points typed."""
     global _LIB
     if _LIB is None:
         lib = kernels.library('cif_hr')
-        fn = lib.cif_hr_accumulate_f32
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                       + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        lib.cif_hr_bin_f32.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+            + [ctypes.c_int, ctypes.c_void_p])
+        lib.cif_hr_accumulate_f32.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib.cif_hr_bin_f32.restype = lib.cif_hr_accumulate_f32.restype = \
+            ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def _masks_like(v: torch.Tensor, out_hw) -> torch.Tensor:
+    """Uninitialized (B, F, tiles, ceil(N / 32)) int32 storage for the
+    first pass's uint32 mask words."""
+    b, f, n = v.shape
+    ty, tx = tile_grid(out_hw)
+    return torch.empty((b, f, ty * tx, -(-n // 32)), dtype=torch.int32,
+                       device=v.device)
+
+
+def _raise_on(who: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f'{who}: kernel launch failed with CUDA error {rc}')
 
 
 def cif_hr_accumulate(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -184,30 +262,42 @@ def cif_hr_accumulate(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     """The CUDA kernel: (B, F, N) float32 cells -> (B, F, Hh, Wh) float32.
 
     ``v`` carries the neighbour factor and is 0 for masked cells; ``sigma``
-    is the blob width in px.  Launches on the current stream without
-    synchronizing.
+    is the blob width in px.  Launches ``bin_kernel`` then ``splat_kernel``
+    on the current stream of ``v``'s card without synchronizing.
     """
-    global KERNEL_LAUNCHES
-    _check_operand('v', v, None)
-    for name, t in (('x', x), ('y', y), ('sigma', sigma)):
-        _check_operand(name, t, v.shape)
-        if t.device != v.device:
-            raise ValueError(f'cif_hr_accumulate: {name} on {t.device}, '
-                             f'v on {v.device}')
+    global KERNEL_LAUNCHES, CUDA_LAUNCHES
+    _check_operands('cif_hr_accumulate', v, x, y, sigma, out_hw)
     b, f, n = v.shape
-    hh, wh = (int(s) for s in out_hw)
-    if b * f > 65535 or (hh + 31) // 32 > 65535:
-        raise ValueError(f'cif_hr_accumulate: grid too large for '
-                         f'{(b, f, hh, wh)}')
+    hh, wh = int(out_hw[0]), int(out_hw[1])
+    masks = _masks_like(v, out_hw)
     out = torch.empty((b, f, hh, wh), dtype=torch.float32, device=v.device)
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().cif_hr_accumulate_f32(
-            v.data_ptr(), x.data_ptr(), y.data_ptr(), sigma.data_ptr(),
-            out.data_ptr(), b * f, n, hh, wh, float(spacing), float(truncate),
-            float(y_offset_px), int(bool(clip)), stream)
-    if rc != 0:
-        raise RuntimeError(f'cif_hr_accumulate: kernel launch failed with '
-                           f'CUDA error {rc}')
+    rc = _lib().cif_hr_accumulate_f32(
+        v.data_ptr(), x.data_ptr(), y.data_ptr(), sigma.data_ptr(),
+        masks.data_ptr(), out.data_ptr(), b * f, n, hh, wh, float(spacing),
+        float(truncate), float(y_offset_px), int(bool(clip)), v.device.index,
+        torch.cuda.current_stream(v.device).cuda_stream)
+    _raise_on('cif_hr_accumulate', rc)
     KERNEL_LAUNCHES += 1
+    CUDA_LAUNCHES += 2
     return out
+
+
+def cif_hr_tile_bins(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                     sigma: torch.Tensor, *, out_hw, spacing: float,
+                     truncate: float, y_offset_px: float = 0.0) -> torch.Tensor:
+    """The kernel's first pass alone (``bin_kernel``): the masks that
+    ``tile_bins_plain`` computes, from the card.  For checks; the main path
+    calls ``cif_hr_accumulate``."""
+    global CUDA_LAUNCHES
+    _check_operands('cif_hr_tile_bins', v, x, y, sigma, out_hw)
+    b, f, n = v.shape
+    hh, wh = int(out_hw[0]), int(out_hw[1])
+    masks = _masks_like(v, out_hw)
+    rc = _lib().cif_hr_bin_f32(
+        v.data_ptr(), x.data_ptr(), y.data_ptr(), sigma.data_ptr(),
+        masks.data_ptr(), b * f, n, hh, wh, float(spacing), float(truncate),
+        float(y_offset_px), v.device.index,
+        torch.cuda.current_stream(v.device).cuda_stream)
+    _raise_on('cif_hr_tile_bins', rc)
+    CUDA_LAUNCHES += 1
+    return masks

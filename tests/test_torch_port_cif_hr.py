@@ -3,12 +3,17 @@
 ``openpifpaf_tpu_torch.ops.cif_hr.accumulate`` on CPU tensors runs the
 plain PyTorch version of the CUDA kernel ``csrc/cif_hr.cu``; the JAX
 ``cif_hr.accumulate`` (its einsum path, the oracle of the Pallas kernel
-``accumulate_pallas`` in ``tests/test_pallas_ops.py``) is the reference.
-The kernel itself runs only on the card and is held against this plain
-version there by ``chip_smoke.py``.
+``accumulate_pallas`` in ``tests/test_pallas_ops.py``) is the reference,
+and the Pallas kernel itself (interpreted) is held to the plain splat too.
+``tile_bins_plain``, the plain version of the kernel's first pass, is held
+to what the second pass needs of it: a cell left out of a tile adds exactly
+0 there.  The kernel itself runs only on the card and is held against these
+plain versions there by ``chip_smoke.py``.
 """
 
 import dataclasses
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -18,6 +23,7 @@ import jax.numpy as jnp
 
 from openpifpaf_tpu.ops import cif_hr as jax_cif_hr
 from openpifpaf_tpu_torch.ops import cif_hr
+from openpifpaf_tpu_torch.ops.common import masked_top_k
 
 from test_pallas_ops import synthetic_inputs
 
@@ -144,3 +150,191 @@ def test_batched_equals_single_and_stays_on_plain_path():
     assert cif_hr.KERNEL_LAUNCHES == before
     torch.testing.assert_close(batched, torch.stack(singles), atol=1e-6,
                                rtol=0)
+
+
+# ------------------------------------------------- the kernel's tile binning
+def cells(conf, x_px, y_px, scale_px, config=cif_hr.CifHrConfig()):
+    """(1, F, N) float32 tensors (v, x, y, sigma) as ``accumulate`` hands
+    them to the kernel."""
+    f = conf.shape[0]
+    v = np.where(conf > config.v_threshold, conf * config.neighbor_factor, 0.0)
+    sigma = np.maximum(config.min_sigma_px, config.sigma_factor * scale_px)
+    return tuple(torch.tensor(a.reshape(1, f, -1), dtype=torch.float32)
+                 for a in (v, x_px, y_px, sigma))
+
+
+def compacted(seed, k=40):
+    """The ``k`` most confident cells in top-k order (positions unordered),
+    as ``max_active`` compaction hands them on."""
+    conf, x_px, y_px, scale_px = synthetic_inputs(seed)
+    v, x, y, sigma = cells(conf, x_px, y_px, scale_px)
+    _, idx, valid = masked_top_k(torch.from_numpy(conf).reshape(1, 5, -1),
+                                 v != 0, k)
+    v = torch.where(valid, torch.gather(v, 2, idx), 0.0)
+    return (v, *(torch.gather(t, 2, idx) for t in (x, y, sigma)))
+
+
+def far_outside(seed):
+    conf, x_px, y_px, scale_px = synthetic_inputs(seed)
+    x_px[:, :, :3] += 5000.0
+    y_px[:, :3, :] -= 5000.0
+    return cells(conf, x_px, y_px, scale_px)
+
+
+def band(seed):
+    conf, x_px, y_px, scale_px = synthetic_inputs(seed)
+    return cells(np.maximum(conf, 0.95), x_px, y_px, scale_px * 3.0)
+
+
+def whole_grid(seed):
+    conf, x_px, y_px, scale_px = synthetic_inputs(seed)
+    return cells(conf, x_px, y_px, scale_px * 100.0)
+
+
+# name -> (cells, out_hw, y_offset_px, clip)
+BIN_CASES = {
+    'synthetic': (lambda: cells(*synthetic_inputs(0)), (65, 65), 0.0, True),
+    'whole-grid window': (lambda: whole_grid(1), (65, 65), 0.0, True),
+    'far outside': (lambda: far_outside(2), (65, 65), 0.0, True),
+    'band unclipped': (lambda: band(3), (20, 65), 37.0, False),
+    'odd grid': (lambda: cells(*synthetic_inputs(4)), (37, 53), 0.0, True),
+    'n=63': (lambda: cells(*synthetic_inputs(5, h=7)), (49, 65), 0.0, True),
+    'compacted': (lambda: compacted(6), (65, 65), 0.0, True),
+}
+
+
+def unpack(masks, n):
+    """(B, F, T, W) int32 words -> (B, F, T, N) bool."""
+    bits = (masks.long()[..., None] >> torch.arange(32)) & 1
+    return bits.reshape(*masks.shape[:3], -1)[..., :n].bool()
+
+
+def profiles(v, x, y, sigma, out_hw, spacing, truncate, y_offset_px):
+    """Row profiles (with v) and column profiles, as ``accumulate_plain``."""
+    hh, wh = out_hw
+    ys = torch.arange(hh, dtype=torch.float32) * spacing + y_offset_px
+    xs = torch.arange(wh, dtype=torch.float32) * spacing
+    dy, dx = ys - y[..., None], xs - x[..., None]
+    inv, tr = (0.5 / (sigma * sigma))[..., None], (truncate * sigma)[..., None]
+    gy = torch.where(dy.abs() <= tr, torch.exp(-dy * dy * inv), 0.0)
+    gx = torch.where(dx.abs() <= tr, torch.exp(-dx * dx * inv), 0.0)
+    return gy * v[..., None], gx
+
+
+def tile_slices(out_hw, tile):
+    ty, tx = cif_hr.tile_grid(out_hw, tile)
+    return [(slice(i * tile[0], (i + 1) * tile[0]),
+             slice(j * tile[1], (j + 1) * tile[1]))
+            for i in range(ty) for j in range(tx)]
+
+
+@pytest.mark.parametrize('tile', [cif_hr.TILE, (8, 8), (16, 32)],
+                         ids=lambda t: f'{t[0]}x{t[1]}')
+@pytest.mark.parametrize('case', list(BIN_CASES))
+def test_tile_bins_are_conservative(case, tile):
+    """``tile_bins_plain`` leaves a (cell, tile) out only where the cell's
+    row profile over the tile's rows or its column profile over the tile's
+    columns is all exact zeros, so the cell adds exactly 0 there."""
+    make, out_hw, y_off, _ = BIN_CASES[case]
+    v, x, y, sigma = make()
+    kw = dict(out_hw=out_hw, spacing=2.0, truncate=1.0, y_offset_px=y_off)
+    masks = cif_hr.tile_bins_plain(v, x, y, sigma, tile=tile, **kw)
+    n = v.shape[2]
+    n_tiles = cif_hr.tile_grid(out_hw, tile)
+    assert masks.dtype == torch.int32
+    assert masks.shape == (1, 5, n_tiles[0] * n_tiles[1], -(-n // 32))
+    binned = unpack(masks, n)
+    assert not (binned & (v == 0)[:, :, None]).any()
+    gy, gx = profiles(v, x, y, sigma, **kw)
+    for t, (rows, cols) in enumerate(tile_slices(out_hw, tile)):
+        zero = ((gy[..., rows] == 0).all(-1) | (gx[..., cols] == 0).all(-1))
+        assert (binned[:, :, t] | zero).all(), t
+    kept = (v != 0)[:, :, None].expand_as(binned)
+    if case == 'whole-grid window':
+        assert torch.equal(binned, kept)
+    elif case == 'far outside':
+        far = torch.zeros(5, 9, 9, dtype=torch.bool)
+        far[:, :, :3] = far[:, :3, :] = True
+        assert not binned[:, :, :, far.reshape(5, -1)[0]].any()
+        assert binned.any()
+    elif tile != cif_hr.TILE:
+        assert 0 < int(binned.sum()) < int(kept.sum())
+
+
+@pytest.mark.parametrize('tile', [cif_hr.TILE, (16, 32)],
+                         ids=lambda t: f'{t[0]}x{t[1]}')
+@pytest.mark.parametrize('case', list(BIN_CASES))
+def test_splat_of_binned_cells_equals_plain(case, tile):
+    """Each tile splatted from its own binned cells alone gives the plain
+    splat of all cells (within 1e-6: only the einsum's order differs)."""
+    make, out_hw, y_off, clip = BIN_CASES[case]
+    inputs = make()
+    kw = dict(out_hw=out_hw, spacing=2.0, truncate=1.0, y_offset_px=y_off)
+    binned = unpack(cif_hr.tile_bins_plain(*inputs, tile=tile, **kw),
+                    inputs[0].shape[2])
+    want = cif_hr.accumulate_plain(*inputs, clip=clip, **kw)
+    got = torch.full_like(want, float('nan'))
+    for t, (rows, cols) in enumerate(tile_slices(out_hw, tile)):
+        v = torch.where(binned[:, :, t], inputs[0], 0.0)
+        got[..., rows, cols] = cif_hr.accumulate_plain(
+            v, *inputs[1:], clip=clip, **kw)[..., rows, cols]
+    assert want.max() > (1.0 if not clip else 0.01)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+def test_tile_bins_bit_layout():
+    """Bit ``c % 32`` of word ``c // 32``, tiles row-major; bit 31 reads as
+    a negative int32."""
+    n = 40
+    v, x, y, sigma = (torch.zeros(1, 1, n) for _ in range(4))
+    sigma += 2.0
+    # cells 0 and 31 in tile (0, 0), cell 33 in tile (1, 1) of 2 x 2
+    v[0, 0, [0, 31, 33]] = 0.5
+    x[0, 0, 33], y[0, 0, 33] = 200.0, 100.0
+    masks = cif_hr.tile_bins_plain(v, x, y, sigma, out_hw=(64, 128),
+                                   spacing=2.0, truncate=1.0, tile=(32, 64))
+    want = torch.zeros(1, 1, 4, 2, dtype=torch.int32)
+    want[0, 0, 0, 0] = 1 - 2 ** 31            # bits 0 and 31
+    want[0, 0, 3, 1] = 2                      # cell 33: word 1, bit 1
+    assert torch.equal(masks, want)
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_plain_matches_pallas_kernel(seed):
+    """The port's plain splat against the TPU kernel itself
+    (``accumulate_pallas``, interpreted), atol 2e-5 as
+    ``test_pallas_ops.py`` holds the kernel to the einsum path."""
+    from openpifpaf_tpu.ops.pallas_cif_hr import accumulate_pallas
+
+    conf, x_px, y_px, scale_px = synthetic_inputs(seed)
+    v, x, y, sigma = cells(conf, x_px, y_px, scale_px)
+    out_hw = out_hw_for(conf)
+    want = np.asarray(accumulate_pallas(
+        *(jnp.asarray(t[0].numpy()) for t in (v, x, y, sigma)),
+        out_hw=out_hw, spacing=2.0, truncate=1.0, interpret=True))
+    got = cif_hr.accumulate_plain(v, x, y, sigma, out_hw=out_hw,
+                                  spacing=2.0, truncate=1.0)[0].numpy()
+    assert got.shape == want.shape == (5, 65, 65) and want.max() > 0.1
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+
+
+def test_kernel_wrappers_refuse_bad_operands():
+    v = torch.zeros(1, 2, 8)
+    before = (cif_hr.KERNEL_LAUNCHES, cif_hr.CUDA_LAUNCHES)
+    kw = dict(out_hw=(4, 4), spacing=2.0, truncate=1.0)
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        cif_hr.cif_hr_tile_bins(v, v, v, v, **kw)
+    meta = torch.zeros(1, 2, 8, device='meta')
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        cif_hr.cif_hr_accumulate(meta, meta, meta, meta, **kw)
+    assert (cif_hr.KERNEL_LAUNCHES, cif_hr.CUDA_LAUNCHES) == before
+
+
+def test_tile_matches_kernel_source():
+    """``TILE``, the tile of ``tile_bins_plain`` and the mask scratch, is
+    the TH x TW that ``csrc/cif_hr.cu`` is compiled with."""
+    src = (pathlib.Path(cif_hr.__file__).parent.parent / 'csrc'
+           / 'cif_hr.cu').read_text()
+    found = tuple(int(re.search(rf'constexpr int {n} = (\d+);', src)[1])
+                  for n in ('TH', 'TW'))
+    assert found == cif_hr.TILE
