@@ -40,7 +40,19 @@ Phases, in order; any failure raises and exits non-zero:
    K2's two (phases 3 and 6), and one served batch under
    ``torch.profiler``, the device's busy share and the ops that take its
    time;
-8. a ``{"kernels": [...]}`` line, the card's name and power limit, then the
+8. train: the port's training path (``openpifpaf_tpu_torch.training``,
+   the canonical graph under autograd; it runs no hand-written kernel).
+   A narrow model's loss components, gradients, one SGD step and its
+   BatchNorm statistics on the card in f32 (TF32 off) against the CPU;
+   ShuffleNetV2K-16 at full width with the COCO CIF/CAF heads, toykp at
+   385 px, batch 8, bf16, 10 SGD-nesterov steps on one fixed batch (finite
+   losses, the last below the first; ms per step by CUDA events, images per
+   second, peak memory, the host's time to render and encode the batch);
+   ``python -m openpifpaf_tpu_torch.train`` for one epoch and ``--resume``
+   for a second (log lines, checkpoint files); the written checkpoint
+   served by ``Predictor`` through K2 and K1 (their counts set to 0 before,
+   read after);
+9. a ``{"kernels": [...]}`` line, the card's name and power limit, then the
    last line ``{"ok": true, "device": {...}}``.
 
 It imports only the port, torch and numpy.
@@ -48,12 +60,14 @@ It imports only the port, torch and numpy.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -825,17 +839,236 @@ def profile_batch(predictor, images) -> None:
               flush=True)
 
 
+# ------------------------------------------------------------------ train
+# the training crop's square edge of the JAX package's cocokp data module
+# (plugins/coco/cocokp.py:30), at the data modules' batch of 8
+TRAIN_EDGE = 385
+TRAIN_BATCH = 8
+TRAIN_STEPS = 10
+# the narrow ShuffleNetV2K of the CPU tests (test_torch_port_models.NARROW)
+NARROW = ((1, 2, 1), (8, 16, 32, 64, 64))
+
+
+def toykp_batch(port, metas, size, n, device):
+    """A fixed toykp batch (seeded, no augmentation) for ``metas``, whose
+    base stride is set: NCHW images and target dicts on ``device``, and
+    the host seconds it took to render and encode it."""
+    dm = port.toykp.ToyKp()
+    dm.head_metas, dm.augmentation, dm.image_size = metas, False, size
+    start = time.perf_counter()
+    ds = port.toykp.ToyKpDataset(
+        n, size, dm.preprocess(np.random.default_rng(0)), seed=0)
+    images, targets, _ = port.datasets.collate_images_targets_meta(
+        [ds[i] for i in range(n)])
+    host_s = time.perf_counter() - start
+    return (images.to(device),
+            [{k: v.to(device) for k, v in t.items()} for t in targets], host_s)
+
+
+def trainer_for(port, model, **settings):
+    opt = port.training.OptimizeFactory()
+    for key, value in settings.items():
+        setattr(opt, key, value)
+    return port.training.Trainer(
+        model, port.losses.Factory().factory(model.head_metas), opt,
+        os.devnull)
+
+
+def check_train_card_vs_cpu(port) -> None:
+    """One train step of the narrow model (seeded weights, toykp batch of
+    4 at 129 px) on the card in f32 with TF32 off and on the CPU, SGD
+    nesterov with clips and weight decay.  Limits: the loss components
+    within 1e-4 relative; per parameter the gradient within 1e-3 of its
+    largest value (at least 1e-2 of the model's largest: BatchNorm biases
+    before a 1x1 conv and another BatchNorm have gradient 0 in exact
+    arithmetic, and their step is lr times rounding noise), the step's
+    change alike, plus 2 ulps of the parameter; the
+    BatchNorm running statistics within 1e-4 relative.  cuDNN and the CPU
+    sum convolutions in other orders."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    metas = port.toykp.coco_head_metas()
+    for meta in metas:
+        meta.base_stride = 16
+    shell = port.models.Shell(
+        port.models.ShuffleNetV2K(*NARROW),
+        [port.models.CompositeField4(m, NARROW[1][-1]) for m in metas])
+    port.models.init_weights(shell, torch.Generator().manual_seed(0))
+    before = {k: v.clone() for k, v in shell.state_dict().items()}
+    images, targets, _ = toykp_batch(port, metas, 129, 4, 'cpu')
+    runs = {}
+    for device in ('cpu', 'cuda'):
+        model = port.models.Model(copy.deepcopy(shell), metas, base_stride=16,
+                                  device=torch.device(device), bf16=False)
+        trainer = trainer_for(port, model, lr=0.05, clip_grad_norm=5.0,
+                              clip_grad_value=1.0, weight_decay=1e-4)
+        trainer.setup(steps_per_epoch=1)
+        _, comps = trainer.train_step(images, targets)
+        runs[device] = (comps.cpu(),
+                        {n: p.grad.cpu() for n, p in
+                         model.module.named_parameters()},
+                        {k: v.cpu() for k, v in
+                         model.module.state_dict().items()})
+    (comps, grads, state), (comps_c, grads_c, state_c) = \
+        runs['cpu'], runs['cuda']
+    loss_err = float(((comps_c - comps).abs()
+                      / comps.abs().clamp(min=1.0)).max())
+    floor = 1e-2 * max(float(g.abs().max()) for g in grads.values())
+    grad_err = max(float((grads_c[n] - g).abs().max())
+                   / max(float(g.abs().max()), floor)
+                   for n, g in grads.items())
+    stat_err = max(float((state_c[k] - v).abs().max())
+                   / max(1.0, float(v.abs().max()))
+                   for k, v in state.items()
+                   if k.endswith(('running_mean', 'running_var')))
+    deltas = {n: state[n] - before[n] for n in grads}
+    step_floor = 1e-2 * max(float(d.abs().max()) for d in deltas.values())
+    eps = float(torch.finfo(torch.float32).eps)
+    step_ratio = 0.0
+    for name, delta in deltas.items():
+        delta_c = state_c[name] - before[name]
+        allowed = (1e-3 * max(float(delta.abs().max()), step_floor)
+                   + 2 * eps * float(before[name].abs().max()))
+        step_ratio = max(step_ratio,
+                         float((delta_c - delta).abs().max()) / allowed)
+    print(f'train card vs CPU (narrow model, 4 images at 129 px, f32, TF32 '
+          f'off): losses {[round(float(c), 5) for c in comps]}, max rel '
+          f'|Δ| {loss_err:.3e} (limit 1e-4); gradients max|Δ|/scale '
+          f'{grad_err:.3e} (limit 1e-3); SGD step change max|Δ| / (1e-3 of '
+          f'the CPU change + 2 ulps) {step_ratio:.3e} (limit 1); BN running '
+          f'stats {stat_err:.3e} (limit 1e-4)', flush=True)
+    if not (loss_err <= 1e-4 and grad_err <= 1e-3 and step_ratio <= 1.0
+            and stat_err <= 1e-4):
+        raise AssertionError('training on the card differs from the CPU')
+
+
+def train_full_width(port, card) -> None:
+    """ShuffleNetV2K-16 at full width with the COCO CIF/CAF heads, bf16,
+    ``TRAIN_STEPS`` SGD-nesterov steps on one fixed toykp batch of
+    ``TRAIN_BATCH`` at ``TRAIN_EDGE`` px: finite losses, the last below the
+    first; ms per step by CUDA events."""
+    torch.backends.cudnn.benchmark = True
+    metas = port.toykp.coco_head_metas()
+    model = port.models.factory('shufflenetv2k16', metas, device='cuda',
+                                seed=0, bf16=True)
+    images, targets, host_s = toykp_batch(port, metas, TRAIN_EDGE,
+                                          TRAIN_BATCH, 'cuda')
+    trainer = trainer_for(port, model, lr=1e-3, momentum=0.95, nesterov=True,
+                          lr_warm_up_epochs=0.3, clip_grad_value=10.0,
+                          weight_decay=1e-5)
+    trainer.ema_decay = 1.0 - 0.01
+    trainer.setup(steps_per_epoch=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        total, _ = trainer.train_step(images, targets)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(total))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = float(np.median(times))
+    print(f'train sn2k16 full width, CIF 17x5 + CAF 19x9, toykp {TRAIN_EDGE} '
+          f'px, batch {TRAIN_BATCH}, bf16, SGD nesterov: losses '
+          f'{[round(l, 4) for l in losses]}; ms per step median {med:.3f} '
+          f'[min {min(times):.3f}, max {max(times):.3f}] (first {times[0]:.3f}'
+          f'), {1e3 * TRAIN_BATCH / med:.1f} images/s; peak device memory '
+          f'{peak:.2f} GiB; host render and encode of the batch '
+          f'{1e3 * host_s:.1f} ms ({card})', flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f'non-finite training loss: {losses}')
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f'training loss did not fall: {losses}')
+    del trainer, model
+
+
+def train_cli(out: str) -> None:
+    """``python -m openpifpaf_tpu_torch.train`` on the card: one epoch of
+    16 toykp images at 385 px, batch 8, then ``--resume`` for a second."""
+    args = [sys.executable, '-m', 'openpifpaf_tpu_torch.train',
+            '--dataset=toykp', '--basenet=shufflenetv2k16',
+            f'--toykp-image-size={TRAIN_EDGE}', '--toykp-n-images=16',
+            f'--batch-size={TRAIN_BATCH}', '--log-interval=1',
+            '--output', out]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for extra in (['--epochs=1'], ['--epochs=2', '--resume']):
+        start = time.perf_counter()
+        result = subprocess.run(args + extra, cwd=REPO, env=env,
+                                capture_output=True, text=True, timeout=600)
+        if result.returncode != 0:
+            raise AssertionError(f'train CLI {extra} failed:\n'
+                                 f'{result.stderr[-3000:]}')
+        print(f'train CLI {" ".join(extra)}: exit 0 in '
+              f'{time.perf_counter() - start:.1f} s', flush=True)
+    with open(out + '.log') as f:
+        lines = [json.loads(line) for line in f]
+    epochs = {kind: [l['epoch'] for l in lines if l['type'] == kind]
+              for kind in ('train-epoch', 'val-epoch')}
+    n_train = sum(l['type'] == 'train' for l in lines)
+    files = [out + s for s in ('.npz', '.epoch001.npz', '.epoch002.npz',
+                               '.train.npz')]
+    print(f'train CLI log: {n_train} train lines, epochs {epochs}; '
+          f'checkpoints {[os.path.basename(f) for f in files]}', flush=True)
+    if (epochs != {'train-epoch': [1, 2], 'val-epoch': [1, 2]}
+            or n_train != 4 or not all(os.path.exists(f) for f in files)):
+        raise AssertionError('train CLI log or checkpoints incomplete')
+
+
+def serve_trained(port, checkpoint: str) -> None:
+    """The trained checkpoint served by ``Predictor`` on the card: 8 toykp
+    images at 385 px through the pair plan (K2) and the decode (K1)."""
+    from openpifpaf_tpu_torch.predictor import Predictor
+
+    predictor = Predictor(checkpoint=checkpoint, device='cuda')
+    predictor.long_edge = TRAIN_EDGE
+    ds = port.toykp.ToyKpDataset(8, TRAIN_EDGE, None, seed=1000)
+    images = [ds.render(i, ds.ground_truth(i)) for i in range(8)]
+    port.cif_hr.KERNEL_LAUNCHES = port.cif_hr.CUDA_LAUNCHES = 0
+    port.pair_chain.KERNEL_LAUNCHES = port.pair_chain.CUDA_LAUNCHES = 0
+    results = predictor.batch(images)
+    k1, k2 = port.cif_hr.KERNEL_LAUNCHES, port.pair_chain.KERNEL_LAUNCHES
+    k1_cuda = port.cif_hr.CUDA_LAUNCHES
+    k2_cuda = port.pair_chain.CUDA_LAUNCHES
+    n_anns = [len(preds) for preds, _ in results]
+    print(f'trained checkpoint served (epoch {predictor.model.epoch}, 8 '
+          f'images at {TRAIN_EDGE} px): cif_hr calls {k1} ({k1_cuda} CUDA '
+          f'kernels), pair_chain calls {k2} ({k2_cuda} CUDA kernels), '
+          f'annotations per image {n_anns}', flush=True)
+    if k1 < 1 or k2 != len(SN2K16_CHAINS) or predictor.model.epoch != 2:
+        raise AssertionError('the trained checkpoint was not served through '
+                             'K1 and K2')
+
+
+def train_phase(port, card) -> None:
+    start = time.perf_counter()
+    check_train_card_vs_cpu(port)
+    train_full_width(port, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, 'model')
+        train_cli(out)
+        serve_trained(port, out + '.npz')
+    print(f'train phase: {time.perf_counter() - start:.1f} s', flush=True)
+
+
 class _Port:
     """The port's modules, imported after the card check."""
 
     def __init__(self):
-        from openpifpaf_tpu_torch import decoder, headmeta, kernels, models, ops
+        from openpifpaf_tpu_torch import (datasets, decoder, headmeta, kernels,
+                                          losses, models, ops, training)
         from openpifpaf_tpu_torch.ops import cif_hr, common, pair_chain
+        from openpifpaf_tpu_torch.plugins import toykp
         from openpifpaf_tpu_torch.plugins.coco import constants
         self.decoder, self.headmeta, self.kernels, self.models, self.ops = \
             decoder, headmeta, kernels, models, ops
         self.cif_hr, self.common, self.constants = cif_hr, common, constants
         self.pair_chain = pair_chain
+        self.datasets, self.losses, self.training, self.toykp = \
+            datasets, losses, training, toykp
 
 
 def main() -> int:
@@ -901,6 +1134,9 @@ def main() -> int:
     if profile_on:
         phase('profile')
         profile_batch(served['predictor'], served['images'])
+
+    phase('train')
+    train_phase(port, card)
 
     print(json.dumps({'kernels': [{
         'name': 'cif_hr_accumulate', 'route': 'cuda',

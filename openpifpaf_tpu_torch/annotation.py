@@ -38,6 +38,9 @@ class Annotation:
         self.data = np.zeros((n, 3), dtype=np.float32)
         self.joint_scales = np.zeros((n,), dtype=np.float32)
         self.fixed_score: Optional[float] = None
+        # ground truth (training transforms): crowd flag and the dataset's box
+        self.iscrowd = False
+        self.fixed_bbox: Optional[np.ndarray] = None
 
         if score_weights is not None:
             score_weights = np.asarray(score_weights, dtype=np.float32)
@@ -56,7 +59,10 @@ class Annotation:
                      / max(1e-8, self.score_weights.sum()))
 
     def bbox(self) -> np.ndarray:
-        """(x, y, w, h) from valid joints, expanded by joint scales."""
+        """(x, y, w, h): the fixed box if set, else from the valid joints,
+        expanded by joint scales."""
+        if self.fixed_bbox is not None:
+            return np.asarray(self.fixed_bbox, dtype=np.float32)
         m = self.data[:, 2] > 0.0
         if not np.any(m):
             return np.zeros((4,), dtype=np.float32)
@@ -96,6 +102,9 @@ class Annotation:
         out.data = np.copy(self.data)
         out.joint_scales = np.copy(self.joint_scales)
         out.fixed_score = self.fixed_score
+        out.iscrowd = self.iscrowd
+        out.fixed_bbox = (None if self.fixed_bbox is None
+                          else np.copy(self.fixed_bbox))
         return out
 
     def __repr__(self):

@@ -70,5 +70,8 @@ def factory(base_name: Optional[str] = None,
                              'must be given')
         shell, stride = build_shell(base_name, head_metas)
         init_weights(shell, torch.Generator().manual_seed(seed))
-    return Model(shell, head_metas, base_stride=stride,
-                 basenet_name=base_name, device=device, bf16=bf16)
+    model = Model(shell, head_metas, base_stride=stride,
+                  basenet_name=base_name, device=device, bf16=bf16)
+    if checkpoint is not None:
+        model.epoch = header.get('epoch', 0)
+    return model

@@ -16,6 +16,8 @@ path maps by replacing ``/`` with ``.``:
 - ``params/head_nets_<i>/conv/{kernel,bias}`` -> ``head_nets.<i>.conv.*``
 
 Like ``converter.py:342-348`` it raises on any key it cannot map.
+``to_jax_variables`` is the way back, for the checkpoints the port's
+trainer writes: a port checkpoint loads into the JAX package.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ def from_jax_variables(flat: Mapping[str, np.ndarray]
     out: Dict[str, torch.Tensor] = {}
     unmapped = []
     for key, value in flat.items():
-        value = np.asarray(value, np.float32)
+        value = np.array(value, np.float32)   # a writable copy
         m = _BASENET.match(key)
         if m and (m.group(1), m.group(3)) in _LEAF:
             coll, path, leaf = m.groups()
@@ -70,4 +72,40 @@ def from_jax_variables(flat: Mapping[str, np.ndarray]
     if unmapped:
         raise ValueError(f'{len(unmapped)} variables have no mapping onto the '
                          f'port\'s modules: {unmapped[:8]}')
+    return out
+
+
+_TO_LEAF = {'weight': ('params', 'scale'), 'bias': ('params', 'bias'),
+            'running_mean': ('batch_stats', 'mean'),
+            'running_var': ('batch_stats', 'var')}
+
+
+def _kernel_to_jax(value: np.ndarray) -> np.ndarray:
+    """OIHW -> HWIO."""
+    return np.ascontiguousarray(np.transpose(value, (2, 3, 1, 0)))
+
+
+def to_jax_variables(state_dict: Mapping[str, torch.Tensor]
+                     ) -> Dict[str, np.ndarray]:
+    """A Shell's ``state_dict`` -> flat flax variables (``params/...``,
+    ``batch_stats/...``), the keys ``from_jax_variables`` reads.
+    ``num_batches_tracked`` has no flax counterpart and is dropped."""
+    out: Dict[str, np.ndarray] = {}
+    for key, tensor in state_dict.items():
+        value = tensor.detach().to('cpu', torch.float32).numpy()
+        module, leaf = key.rsplit('.', 1)
+        if leaf == 'num_batches_tracked':
+            continue
+        parts = module.split('.')
+        if parts[0] == 'head_nets':
+            path = f'head_nets_{parts[1]}/{"/".join(parts[2:])}'
+        elif parts[0] == 'basenet':
+            path = '/'.join(parts)
+        else:
+            raise ValueError(f'no flax mapping for {key}')
+        if leaf == 'weight' and value.ndim == 4:
+            out[f'params/{path}/kernel'] = _kernel_to_jax(value)
+            continue
+        coll, name = _TO_LEAF[leaf]
+        out[f'{coll}/{path}/{name}'] = np.ascontiguousarray(value)
     return out

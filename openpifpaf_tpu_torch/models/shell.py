@@ -53,6 +53,7 @@ class Model:
         self.basenet_name = basenet_name
         self.device = device
         self.bf16 = bf16
+        self.epoch = 0   # the training epochs behind the weights
         self._plan = None
         for i, meta in enumerate(self.head_metas):
             meta.head_index = i

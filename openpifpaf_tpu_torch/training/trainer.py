@@ -1,0 +1,291 @@
+"""Trainer: the training loop.
+
+Port of ``openpifpaf_tpu/training/trainer.py``: per batch forward, loss,
+backward, gradient clipping, optimizer step and an EMA of the parameters;
+per epoch a val pass and the checkpoint files; json-lines log; SIGTERM
+checkpoints at the next epoch boundary.
+
+The forward is the port's canonical graph (``Shell``) under autograd in
+train mode, bf16 through autocast with f32 parameters when the model is
+``bf16``, as the JAX ``Factory(bf16=True)`` trains.  BatchNorm updates its
+running statistics flax's way (``models/base.BatchNorm``).  The served
+forward folds BatchNorm once (``Model.inference_plan``), so every step
+calls ``Model.refold()``: a ``Predictor`` on the same model then serves the
+trained weights.
+
+Checkpoints, in the JAX package's npz format (``models/checkpoint.py``):
+``<out>.npz`` and ``<out>.epochNNN.npz`` hold the EMA parameters with the
+current batch statistics; ``<out>.train.npz`` holds the raw parameters,
+the EMA (``ema/...``) and the statistics, for ``--resume``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import signal
+import time
+from typing import List
+
+import numpy as np
+import torch
+from torch import nn
+
+from .optimize import OptimizeFactory
+from ..models import checkpoint as checkpoint_mod
+from ..models.from_jax import from_jax_variables, to_jax_variables
+
+LOG = logging.getLogger(__name__)
+
+
+class Trainer:
+    epochs = 1
+    ema_decay = 0.99          # reference --ema (update factor 0.01)
+    checkpoint_interval = 1   # epochs between checkpoint files
+    log_interval = 10         # batches between log lines
+    val_interval = 1
+    fix_batch_norm = False
+
+    @classmethod
+    def cli(cls, parser: argparse.ArgumentParser) -> None:
+        group = parser.add_argument_group('trainer')
+        group.add_argument('--epochs', default=cls.epochs, type=int)
+        group.add_argument('--ema', default=1.0 - cls.ema_decay, type=float,
+                           help='EMA update factor (0: checkpoints hold the '
+                                'raw parameters)')
+        group.add_argument('--checkpoint-interval',
+                           default=cls.checkpoint_interval, type=int)
+        group.add_argument('--log-interval', default=cls.log_interval,
+                           type=int)
+        group.add_argument('--val-interval', default=cls.val_interval,
+                           type=int)
+        group.add_argument('--fix-batch-norm', default=cls.fix_batch_norm,
+                           action='store_true',
+                           help='freeze batch norm statistics')
+
+    @classmethod
+    def configure(cls, args: argparse.Namespace) -> None:
+        cls.epochs = args.epochs
+        cls.ema_decay = 1.0 - args.ema
+        cls.checkpoint_interval = args.checkpoint_interval
+        cls.log_interval = args.log_interval
+        cls.val_interval = args.val_interval
+        cls.fix_batch_norm = args.fix_batch_norm
+
+    # ------------------------------------------------------------------
+    def __init__(self, model, loss_fn, optimize_factory: OptimizeFactory,
+                 out: str, *, auto_tune_mtl: bool = False):
+        self.model = model
+        self.shell = model.module
+        self.device = model.device
+        self.loss_fn = loss_fn
+        self.optimize_factory = optimize_factory
+        self.out = out
+        self.step = 0
+        self.params = list(self.shell.parameters())
+        self.ema = [p.detach().clone() for p in self.params]
+        # Kendall task-uncertainty weights, optimized with the parameters
+        self.log_sigmas = (nn.Parameter(torch.zeros(
+            len(loss_fn.field_names), device=self.device))
+            if auto_tune_mtl else None)
+        self.optimizer = self.scheduler = self.schedule = None
+        self._log_file = None
+        self._preempted = False
+
+    @property
+    def opt_params(self) -> List[torch.Tensor]:
+        extra = [self.log_sigmas] if self.log_sigmas is not None else []
+        return self.params + extra
+
+    def setup(self, steps_per_epoch: int) -> None:
+        """Schedule and optimizer, continuing the schedule at ``step``."""
+        self.schedule = self.optimize_factory.schedule(
+            steps_per_epoch=steps_per_epoch, total_epochs=self.epochs)
+        self.optimizer, self.scheduler = self.optimize_factory.optimizer(
+            self.opt_params, self.schedule, start_step=self.step)
+
+    def _install_preemption_handler(self) -> None:
+        """SIGTERM -> finish the current epoch, checkpoint, exit cleanly."""
+        def handler(signum, frame):  # pylint: disable=unused-argument
+            LOG.warning('received signal %d: will checkpoint and stop at '
+                        'the next epoch boundary', signum)
+            self._preempted = True
+
+        try:
+            signal.signal(signal.SIGTERM, handler)
+        except ValueError:  # pragma: no cover - non-main thread
+            pass
+
+    # -- steps ----------------------------------------------------------
+    def _to_device(self, images, targets):
+        images = images.to(self.device, torch.float32, non_blocking=True)
+        targets = [{k: v.to(self.device, non_blocking=True)
+                    for k, v in t.items()} for t in targets]
+        return images, targets
+
+    def _forward(self, images):
+        with torch.autocast(self.device.type, dtype=torch.bfloat16,
+                            enabled=self.model.bf16):
+            return self.shell(images)
+
+    def train_step(self, images, targets):
+        """One optimizer step; returns (total, components) as tensors."""
+        images, targets = self._to_device(images, targets)
+        self.shell.train()
+        if self.fix_batch_norm:
+            for m in self.shell.modules():
+                if isinstance(m, nn.BatchNorm2d):
+                    m.eval()
+        total, comps = self.loss_fn(self._forward(images), targets,
+                                    log_sigmas=self.log_sigmas)
+        self.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        self.optimize_factory.clip_gradients(self.opt_params)
+        self.optimizer.step()
+        self.scheduler.step()
+        with torch.no_grad():
+            # ema = d * ema + (1 - d) * p, over the parameters only
+            torch._foreach_mul_(self.ema, self.ema_decay)
+            torch._foreach_add_(self.ema, self.params,
+                                alpha=1.0 - self.ema_decay)
+        self.step += 1
+        # served forwards (Model.apply, the folded plan) expect eval mode
+        # and the new weights
+        self.shell.eval()
+        self.model.refold()
+        return total.detach(), torch.stack(comps).detach()
+
+    @torch.no_grad()
+    def val_step(self, images, targets):
+        images, targets = self._to_device(images, targets)
+        total, comps = self.loss_fn(self._forward(images), targets,
+                                    log_sigmas=self.log_sigmas)
+        return total, torch.stack(comps)
+
+    # -- logging --------------------------------------------------------
+    def log_line(self, data: dict) -> None:
+        if self._log_file is None:
+            self._log_file = open(self.out + '.log', 'a')  # pylint: disable=consider-using-with
+        self._log_file.write(json.dumps(data) + '\n')
+        self._log_file.flush()
+
+    def close(self) -> None:
+        if self._log_file is not None:
+            self._log_file.close()
+            self._log_file = None
+
+    # -- checkpointing --------------------------------------------------
+    def served_params(self) -> List[torch.Tensor]:
+        """The parameters the checkpoints serve: the EMA, or the raw
+        parameters with ``--ema 0``."""
+        return self.ema if self.ema_decay < 1.0 else self.params
+
+    def _state_dict(self, params) -> dict:
+        state = self.shell.state_dict()
+        for (name, _), value in zip(self.shell.named_parameters(), params):
+            state[name] = value
+        return state
+
+    def write_checkpoint(self, epoch: int) -> None:
+        served = to_jax_variables(self._state_dict(self.served_params()))
+        kw = dict(head_metas=self.model.head_metas,
+                  basenet_name=self.model.basenet_name,
+                  base_stride=self.model.base_stride, epoch=epoch)
+        name = f'{self.out}.epoch{epoch:03d}.npz'
+        checkpoint_mod.save(name, variables=served, **kw)
+        checkpoint_mod.save(self.out + '.npz', variables=served, **kw)
+        # training copy (raw params and the EMA) for resume
+        train_vars = to_jax_variables(self.shell.state_dict())
+        ema = to_jax_variables(self._state_dict(self.ema))
+        train_vars.update({'ema/' + k[len('params/'):]: v
+                           for k, v in ema.items() if k.startswith('params/')})
+        checkpoint_mod.save(self.out + '.train.npz', variables=train_vars, **kw)
+        LOG.info('checkpoint written: %s', name)
+
+    def load_train_checkpoint(self, path: str, steps_per_epoch: int) -> int:
+        """Restores the parameters, the EMA, the batch statistics and the
+        step from ``<out>.train.npz``; returns its epoch.  The optimizer
+        state (momentum, Adam moments) is not restored, as in the JAX
+        trainer: it starts anew, while the schedule goes on at the
+        restored step."""
+        header, flat = checkpoint_mod.load(path)
+        model_vars = {k: v for k, v in flat.items() if not k.startswith('ema/')}
+        self.shell.load_state_dict(from_jax_variables(model_vars), strict=True)
+        ema = from_jax_variables({'params/' + k[len('ema/'):]: v
+                                  for k, v in flat.items()
+                                  if k.startswith('ema/')})
+        with torch.no_grad():
+            for (name, _), e in zip(self.shell.named_parameters(), self.ema):
+                e.copy_(ema[name])
+        self.model.refold()
+        self.step = header['epoch'] * steps_per_epoch
+        return header['epoch']
+
+    # -- the loop -------------------------------------------------------
+    def loop(self, train_loader, val_loader=None, *, start_epoch: int = 0):
+        steps_per_epoch = len(train_loader)
+        self.setup(steps_per_epoch)
+        self._install_preemption_handler()
+        try:
+            for epoch in range(start_epoch, self.epochs):
+                if self._preempted:
+                    LOG.warning('preemption: checkpointing at epoch %d and '
+                                'stopping', epoch)
+                    self.write_checkpoint(epoch)
+                    break
+                self.train_epoch(train_loader, epoch, steps_per_epoch)
+                if val_loader is not None and \
+                        (epoch + 1) % self.val_interval == 0:
+                    self.val_epoch(val_loader, epoch)
+                if ((epoch + 1) % self.checkpoint_interval == 0
+                        or epoch + 1 == self.epochs):
+                    self.write_checkpoint(epoch + 1)
+        finally:
+            self.close()
+
+    def train_epoch(self, loader, epoch: int, steps_per_epoch: int) -> None:
+        epoch_start = time.perf_counter()
+        last_log = epoch_start
+        loss_acc = []
+        for batch_i, (images, targets, _) in enumerate(loader):
+            step = self.step
+            total, comps = self.train_step(images, targets)
+            if (batch_i % self.log_interval == 0
+                    or batch_i + 1 == steps_per_epoch):
+                total = float(total)
+                now = time.perf_counter()
+                self.log_line({
+                    'type': 'train', 'epoch': epoch, 'batch': batch_i,
+                    'n_batches': steps_per_epoch,
+                    'time': round(now - last_log, 3),
+                    'lr': float(self.schedule(step)),
+                    'loss': round(total, 6),
+                    'head_losses': [round(c, 6) for c in comps.tolist()],
+                })
+                last_log = now
+                loss_acc.append(total)
+                if not np.isfinite(total):
+                    raise RuntimeError(f'loss is {total} at epoch {epoch} '
+                                       f'batch {batch_i}')
+        self.log_line({
+            'type': 'train-epoch', 'epoch': epoch + 1,
+            'loss': round(float(np.mean(loss_acc)), 6) if loss_acc else None,
+            'time': round(time.perf_counter() - epoch_start, 1),
+        })
+
+    def val_epoch(self, loader, epoch: int) -> None:
+        start = time.perf_counter()
+        totals, comps_acc = [], []
+        for images, targets, _ in loader:
+            total, comps = self.val_step(images, targets)
+            totals.append(float(total))
+            comps_acc.append(comps.cpu().numpy())
+        self.log_line({
+            'type': 'val-epoch', 'epoch': epoch + 1,
+            'loss': round(float(np.mean(totals)), 6) if totals else None,
+            'head_losses': [round(float(c), 6)
+                            for c in np.mean(comps_acc, axis=0)] if comps_acc
+            else [],
+            'time': round(time.perf_counter() - start, 1),
+        })

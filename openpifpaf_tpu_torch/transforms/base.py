@@ -1,0 +1,59 @@
+"""Preprocess base class and meta conventions.
+
+Port of ``openpifpaf_tpu/transforms/preprocess.py`` (named ``base`` here:
+``transforms.preprocess`` is the eval function the ``Predictor`` calls).  Every transform
+implements ``__call__(image, anns, meta)`` and records enough in ``meta``
+for predictions to be mapped back to original image coordinates
+(``Annotation.inverse_transform``): ``x_original = (x_transformed +
+offset) / scale``.  Images are (3, H, W) float32 tensors in uint8 levels
+(PIL images in the JAX package) until ``ImageToTensor`` normalizes them.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+
+from .eval import init_meta
+
+
+class Preprocess:
+    def __call__(self, image, anns, meta):
+        raise NotImplementedError
+
+    @staticmethod
+    def init_meta(image, meta=None) -> dict:
+        """``meta`` completed with the defaults for a (3, H, W) image; keys
+        already present win, as in the JAX package."""
+        meta = dict(meta) if meta else {}
+        h, w = image.shape[-2:]
+        defaults = init_meta(w, h)
+        for key in ('offset', 'scale', 'rotation', 'valid_area', 'hflip',
+                    'width_height'):
+            meta.setdefault(key, defaults[key])
+        # first init wins: the original canvas, for inverse transforms
+        meta.setdefault('original_width_height', meta['width_height'])
+        meta.setdefault('horizontal_swap', None)
+        return meta
+
+
+def rescale_annotations(anns: List, x_scale: float, y_scale: float):
+    scale4 = np.array([x_scale, y_scale, x_scale, y_scale])
+    for ann in anns:
+        ann.data[:, 0] *= x_scale
+        ann.data[:, 1] *= y_scale
+        ann.joint_scales *= (x_scale + y_scale) / 2.0
+        if ann.fixed_bbox is not None:
+            ann.fixed_bbox = np.asarray(ann.fixed_bbox, np.float32) * scale4
+    return anns
+
+
+def translate_annotations(anns: List, dx: float, dy: float):
+    shift4 = np.array([dx, dy, 0.0, 0.0])
+    for ann in anns:
+        ann.data[:, 0] += dx
+        ann.data[:, 1] += dy
+        if ann.fixed_bbox is not None:
+            ann.fixed_bbox = np.asarray(ann.fixed_bbox, np.float32) + shift4
+    return anns

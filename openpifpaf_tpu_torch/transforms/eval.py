@@ -4,13 +4,15 @@ Port of the eval transforms the JAX Predictor composes
 (``openpifpaf_tpu/transforms``: ``RescaleAbsolute`` in ``scale.py``,
 ``CenterPad`` in ``pad.py``, ``ImageToNumpy`` in ``image.py:63-73``), on
 torch tensors instead of PIL images — the machine with the card has no PIL.
+Images are (3, H, W) float32 tensors in uint8 levels until ``normalize``.
 Each step records in ``meta`` what ``Annotation.inverse_transform`` needs:
 ``x_original = (x_transformed + offset) / scale``.
 
-The rescale is ``F.interpolate(mode='bilinear', antialias=True)`` rounded
-to uint8 levels, which approximates PIL's bilinear ``resize`` (the test
-states the tolerance); it is the identity when the long edge is already the
-target, as in PIL's path.
+The rescale (``resize``) is ``F.interpolate(mode='bilinear',
+antialias=True)`` rounded to uint8 levels, which approximates PIL's
+bilinear ``resize`` (the test states the tolerance); it is the identity
+when the long edge is already the target, as in PIL's path.  The training
+transforms (``scale.py``, ``pad.py``) share ``resize`` and ``pad``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,21 @@ def init_meta(width: int, height: int) -> dict:
     }
 
 
+def resize(image: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """(3, H, W) in uint8 levels -> (3, height, width), PIL-like bilinear."""
+    image = F.interpolate(image[None], size=(height, width), mode='bilinear',
+                          align_corners=False, antialias=True)[0]
+    return torch.clamp(torch.round(image), 0.0, 255.0)
+
+
+def rescale_meta(meta: dict, x_scale: float, y_scale: float) -> dict:
+    meta['offset'] = meta['offset'] * np.array((x_scale, y_scale))
+    meta['scale'] = meta['scale'] * np.array((x_scale, y_scale))
+    meta['valid_area'] = meta['valid_area'] * np.array(
+        (x_scale, y_scale, x_scale, y_scale))
+    return meta
+
+
 def rescale_absolute(image: torch.Tensor, long_edge: int, meta: dict):
     """image: (3, H, W) float32 in uint8 levels.  Rescale so the long edge
     equals ``long_edge``, preserving aspect."""
@@ -46,16 +63,22 @@ def rescale_absolute(image: torch.Tensor, long_edge: int, meta: dict):
     tw, th = round(w * s), round(h * s)
     if (tw, th) == (w, h):
         return image, meta
-    image = F.interpolate(image[None], size=(th, tw), mode='bilinear',
-                          align_corners=False, antialias=True)[0]
-    image = torch.clamp(torch.round(image), 0.0, 255.0)
+    image = resize(image, tw, th)
     x_scale = (tw - 1) / (w - 1) if w > 1 else 1.0
     y_scale = (th - 1) / (h - 1) if h > 1 else 1.0
-    meta['offset'] = meta['offset'] * np.array((x_scale, y_scale))
-    meta['scale'] = meta['scale'] * np.array((x_scale, y_scale))
-    meta['valid_area'] = meta['valid_area'] * np.array(
-        (x_scale, y_scale, x_scale, y_scale))
-    return image, meta
+    return image, rescale_meta(meta, x_scale, y_scale)
+
+
+def pad(image: torch.Tensor, left: int, top: int, right: int,
+        bottom: int) -> torch.Tensor:
+    """Pad a (3, H, W) image with the JAX package's fill colour."""
+    _, h, w = image.shape
+    out = torch.empty((3, h + top + bottom, w + left + right),
+                      dtype=image.dtype, device=image.device)
+    out[:] = torch.tensor(PAD_FILL, dtype=image.dtype,
+                          device=image.device)[:, None, None]
+    out[:, top:top + h, left:left + w] = image
+    return out
 
 
 def center_pad(image: torch.Tensor, target_size: int, meta: dict):
@@ -68,11 +91,7 @@ def center_pad(image: torch.Tensor, target_size: int, meta: dict):
     bottom = max(0, target_size - h - top)
     if not any((left, top, right, bottom)):
         return image, meta
-    out = torch.empty((3, h + top + bottom, w + left + right),
-                      dtype=image.dtype, device=image.device)
-    out[:] = torch.tensor(PAD_FILL, dtype=image.dtype,
-                          device=image.device)[:, None, None]
-    out[:, top:top + h, left:left + w] = image
+    out = pad(image, left, top, right, bottom)
     meta['offset'] = meta['offset'] - np.array((left, top), float)
     meta['valid_area'] = meta['valid_area'] + np.array((left, top, 0.0, 0.0))
     meta['width_height'] = np.array((out.shape[2], out.shape[1]))

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone and runs on the card unless told otherwise.
 
 - ``openpifpaf_tpu_torch`` and ``chip_smoke.py`` import no ``jax``,
-  ``flax``, ``PIL`` or ``openpifpaf_tpu`` (the machine with the card has
-  none of them);
+  ``flax``, ``optax``, ``PIL`` or ``openpifpaf_tpu`` (the machine with the
+  card has none of them), the training path included;
 - entry points default to ``device='cuda'`` and raise without CUDA instead
   of falling back to the CPU;
 - the CUDA kernels' wrappers take CUDA tensors only: the plain versions are
@@ -19,7 +19,7 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'PIL', 'openpifpaf_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'PIL', 'openpifpaf_tpu')
 
 
 def port_sources():
@@ -47,6 +47,10 @@ def imported_modules(path):
 def test_port_sources_found():
     files = port_sources()
     assert os.path.join(REPO, 'chip_smoke.py') in files
+    for name in ('train.py', 'training/trainer.py', 'losses/composite.py',
+                 'encoder/cif.py', 'transforms/scale.py',
+                 'plugins/toykp/datamodule.py', 'datasets/collate.py'):
+        assert os.path.join(REPO, 'openpifpaf_tpu_torch', name) in files
     assert len(files) > 20
 
 
@@ -66,7 +70,7 @@ def test_import_loads_no_jax_and_builds_nothing():
         'def refuse(*a, **kw): raise AssertionError(f"subprocess at import: {a}")\n'
         'subprocess.run = subprocess.Popen = refuse\n'
         'import sys, openpifpaf_tpu_torch.predictor, openpifpaf_tpu_torch.ops, '
-        'openpifpaf_tpu_torch.kernels as k\n'
+        'openpifpaf_tpu_torch.train, openpifpaf_tpu_torch.kernels as k\n'
         f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]\n'
         'assert not bad, bad\n'
         'assert not k._LIBS\n')
