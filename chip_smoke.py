@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's predict path once on an NVIDIA card.
+"""Drive the PyTorch port's predict, train and eval paths on an NVIDIA card.
 
 Usage (from the repository root, one CUDA card):
 
@@ -52,8 +52,24 @@ Phases, in order; any failure raises and exits non-zero:
    for a second (log lines, checkpoint files); the written checkpoint
    served by ``Predictor`` through K2 and K1 (their counts set to 0 before,
    read after);
-9. a ``{"kernels": [...]}`` line, the card's name and power limit, then the
-   last line ``{"ok": true, "device": {...}}``.
+9. eval: (a) ``python -m openpifpaf_tpu_torch.eval`` on the card scores
+   the train phase's checkpoint at 385 px (the stats json's keys); (b) the
+   golden fields replayed through the card's decode and the port's COCO
+   metric, with and without ``--force-complete-pose``: the stats equal the
+   CPU's, AP > 0.9; (c) sn2k16 at full width with bias-shifted heads, bf16,
+   16 toykp images at 385 px in batches of 8 through ``Evaluator``:
+   single-scale without and with force-complete, then multi-scale with it
+   (289, 385 and 481 px, each with its hflip); per variant K1 once and K2
+   three times per batch (counts set to 0 before each run, read after);
+   images/s, ``nn_time``, ``decoder_time``, host syncs per batch, peak
+   memory; (d) the single-scale predictions and one image of each
+   multi-scale variant held to the port's CPU decode of the same fields;
+   then K1 and K2 held to their plain versions and timed on the 289 and
+   481 px variants' inputs;
+10. a ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
+   serve phase, ``eval_launches`` from the multi-scale eval), the card's
+   name and power limit, then the last line ``{"ok": true, "device":
+   {...}}``.
 
 It imports only the port, torch and numpy.
 """
@@ -61,6 +77,7 @@ It imports only the port, torch and numpy.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -588,6 +605,49 @@ def check_golden_decode(port) -> None:
                      fields_cuda, 'golden decode')
 
 
+def cpu_decode(port, decoder, fields):
+    """The port's CPU decode of ``fields`` with the configuration the card
+    runs (f32 profiles, ``profile_bf16=False``), as numpy arrays."""
+    h, w = fields[0].shape[-2:]
+    stride = decoder.cif_meta.stride
+    config = decoder.config_for(((h - 1) * stride + 1, (w - 1) * stride + 1))
+    if config.cifhr.profile_bf16:
+        raise AssertionError('the card decode must run f32 profiles')
+    out = port.ops.make_batch_decoder(
+        cif_meta=decoder.cif_meta, caf_meta=decoder.caf_meta, config=config,
+        device='cpu')(*[f.cpu() for f in fields])
+    return [t.numpy() for t in out]
+
+
+def pose_difference(a, b):
+    """Two decodes (numpy ``DecodedPoses``): whether every image has the
+    same number of valid poses, and if so the max |Δxyv| and |Δscore| over
+    poses matched one to one (greedily, each pose of ``a`` to the nearest
+    free pose of ``b``)."""
+    valid_a, valid_b = a[3], b[3]
+    same_count = np.array_equal(valid_a.sum(1), valid_b.sum(1))
+    dxyv = dscore = 0.0
+    for i in range(valid_b.shape[0]) if same_count else ():
+        xyv_a, xyv_b = a[0][i][valid_a[i]], b[0][i][valid_b[i]]
+        sc_a, sc_b = a[2][i][valid_a[i]], b[2][i][valid_b[i]]
+        free = list(range(len(xyv_b)))
+        for j in range(len(xyv_a)):
+            d = [float(np.abs(xyv_a[j] - xyv_b[k]).max()) for k in free]
+            best = int(np.argmin(d))
+            dxyv = max(dxyv, d[best])
+            dscore = max(dscore, float(abs(sc_a[j] - sc_b[free[best]])))
+            free.pop(best)
+    return same_count, dxyv, dscore
+
+
+def same_counters(a, b) -> bool:
+    """The CAF and CifHr overflow counters equal, the unclaimed-seed
+    counter within one per image (``hold_card_to_cpu``)."""
+    return (all(np.array_equal(x, y) for x, y in zip(a[4:6], b[4:6]))
+            and np.abs(a[6].astype(np.int64)
+                       - b[6].astype(np.int64)).max() <= 1)
+
+
 def hold_card_to_cpu(port, decoder, on_card, fields_cuda, label) -> None:
     """The card's decode of ``fields_cuda`` against the port's CPU decode of
     the same fields, with the configuration the card ran (f32 profiles,
@@ -601,35 +661,12 @@ def hold_card_to_cpu(port, decoder, on_card, fields_cuda, label) -> None:
     that 1e-3, and a seed on the claim radius moves the later poses to
     other slots (at the served budgets, every cell a detection, one seed of
     ~180 sits on it)."""
-    h, w = fields_cuda[0].shape[-2:]
-    stride = decoder.cif_meta.stride
-    config = decoder.config_for(((h - 1) * stride + 1, (w - 1) * stride + 1))
-    if config.cifhr.profile_bf16:
-        raise AssertionError('the card decode must run f32 profiles')
-    on_cpu = port.ops.make_batch_decoder(
-        cif_meta=decoder.cif_meta, caf_meta=decoder.caf_meta, config=config,
-        device='cpu')(*[f.cpu() for f in fields_cuda])
     card_np = [t.cpu().numpy() for t in on_card]
-    cpu_np = [t.numpy() for t in on_cpu]
+    cpu_np = cpu_decode(port, decoder, fields_cuda)
     valid_c, valid_h = card_np[3], cpu_np[3]
-    same_count = np.array_equal(valid_c.sum(1), valid_h.sum(1))
-    dxyv = dscore = 0.0
-    matched = same_count
-    for i in range(valid_h.shape[0]) if same_count else ():
-        xyv_c, xyv_h = card_np[0][i][valid_c[i]], cpu_np[0][i][valid_h[i]]
-        sc_c, sc_h = card_np[2][i][valid_c[i]], cpu_np[2][i][valid_h[i]]
-        free = list(range(len(xyv_h)))
-        for j in range(len(xyv_c)):
-            d = [float(np.abs(xyv_c[j] - xyv_h[k]).max()) for k in free]
-            best = int(np.argmin(d))
-            dxyv = max(dxyv, d[best])
-            dscore = max(dscore, float(abs(sc_c[j] - sc_h[free[best]])))
-            free.pop(best)
+    matched, dxyv, dscore = pose_difference(card_np, cpu_np)
     counters = [np.asarray(a).tolist() for a in card_np[4:]]
-    same_counters = (all(np.array_equal(a, b)
-                         for a, b in zip(card_np[4:6], cpu_np[4:6]))
-                     and np.abs(card_np[6].astype(np.int64)
-                                - cpu_np[6].astype(np.int64)).max() <= 1)
+    agree = same_counters(card_np, cpu_np)
     same_slots = np.array_equal(valid_c, valid_h)
     print(f'{label}, card vs CPU decode of {valid_h.shape[0]} images: '
           f'valid poses {valid_c.sum(1).tolist()} card, '
@@ -638,8 +675,52 @@ def hold_card_to_cpu(port, decoder, on_card, fields_cuda, label) -> None:
           f'max|dscore| {dscore:.3e} (limit 1e-4); overflow counters (caf, '
           f'cif, poses) card {counters}, CPU '
           f'{[np.asarray(a).tolist() for a in cpu_np[4:]]}, agree: '
-          f'{same_counters}', flush=True)
-    if not (matched and same_counters and dxyv <= 1e-3 and dscore <= 1e-4):
+          f'{agree}', flush=True)
+    if not (matched and agree and dxyv <= 1e-3 and dscore <= 1e-4):
+        raise AssertionError(f'{label}: card and CPU decodes differ')
+
+
+def poses_missed(a, b, tol: float = 1e-3):
+    """Per image, how many of ``a``'s valid poses have no valid pose of
+    ``b`` within ``tol`` in every xyv value."""
+    missed = []
+    for i in range(a[3].shape[0]):
+        xyv_b = b[0][i][b[3][i]].reshape(int(b[3][i].sum()), -1)
+        missed.append(sum(
+            not (np.abs(xyv_b - pose.reshape(-1)).max(1) <= tol).any()
+            for pose in a[0][i][a[3][i]]))
+    return missed
+
+
+def hold_at_budget(port, decoder, on_card, fields_cuda, label) -> None:
+    """The card's decode of fields where every cell is a detection (the
+    bias-shifted heads), at the seed and pose budgets, against the port's
+    CPU decode of the same fields.  There near-ties decide: a seed on the
+    claim radius of a grown pose (``hold_card_to_cpu``), two candidates
+    whose scores differ in the last ulp.  Where the card's and the CPU's
+    f32 arithmetic fall on either side of one, the two decodes grow a
+    pose differently, and neither is wrong.  Held: per image the same
+    number of valid poses, the same overflow counters (the unclaimed-seed
+    counter within one), and every card pose but at most one per image
+    within 1e-3 of a CPU pose in every xyv value.  Printed: the poses
+    matched one to one (max |Δxyv|, |Δscore|) and the poses without a CPU
+    pose within 1e-3."""
+    card_np = [t.cpu().numpy() for t in on_card]
+    cpu_np = cpu_decode(port, decoder, fields_cuda)
+    same_count, dxyv, dscore = pose_difference(card_np, cpu_np)
+    agree = same_counters(card_np, cpu_np)
+    missed = poses_missed(card_np, cpu_np)
+    print(f'{label}, card vs CPU decode of {cpu_np[3].shape[0]} images at '
+          f'the budgets: valid poses {card_np[3].sum(1).tolist()} card, '
+          f'{cpu_np[3].sum(1).tolist()} CPU, equal: {same_count}; overflow '
+          f'counters (caf, cif, poses) card '
+          f'{[np.asarray(a).tolist() for a in card_np[4:]]}, CPU '
+          f'{[np.asarray(a).tolist() for a in cpu_np[4:]]}, agree: {agree}; '
+          f'poses matched one to one: max|dxyv| {dxyv:.3e}, max|dscore| '
+          f'{dscore:.3e}; card poses without a CPU pose within 1e-3, per '
+          f'image: {missed} of {int(card_np[3].sum())} (limit 1 per image)',
+          flush=True)
+    if not (same_count and agree and max(missed) <= 1):
         raise AssertionError(f'{label}: card and CPU decodes differ')
 
 
@@ -1043,15 +1124,327 @@ def serve_trained(port, checkpoint: str) -> None:
                              'K1 and K2')
 
 
-def train_phase(port, card) -> None:
+def train_phase(port, card, out: str) -> None:
+    """The train phase; the CLI writes its checkpoints to ``out``.*."""
     start = time.perf_counter()
     check_train_card_vs_cpu(port)
     train_full_width(port, card)
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, 'model')
-        train_cli(out)
-        serve_trained(port, out + '.npz')
+    train_cli(out)
+    serve_trained(port, out + '.npz')
     print(f'train phase: {time.perf_counter() - start:.1f} s', flush=True)
+
+
+# ------------------------------------------------------------------- eval
+# the eval phase's toykp configuration: sn2k16 at full width, bf16, 16
+# images at the train phase's 385 px in batches of 8; multi-scale at the
+# JAX package's default factors (289, 385 and 481 px, each with its hflip)
+EVAL_EDGE = 385
+EVAL_IMAGES = 16
+EVAL_BATCH = 8
+EVAL_FACTORS = (0.75, 1.0, 1.25)
+
+
+def eval_cli(checkpoint: str, out: str) -> None:
+    """(a) ``python -m openpifpaf_tpu_torch.eval`` on the card (no
+    ``--device``) scores the train phase's checkpoint on toykp's 8 eval
+    images at 385 px; the stats json has the JAX package's keys."""
+    args = [sys.executable, '-m', 'openpifpaf_tpu_torch.eval',
+            '--dataset=toykp', f'--checkpoint={checkpoint}',
+            f'--toykp-image-size={EVAL_EDGE}', f'--batch-size={EVAL_BATCH}',
+            '-o', out]
+    start = time.perf_counter()
+    result = subprocess.run(args, cwd=REPO, capture_output=True, text=True,
+                            env=dict(os.environ, PYTHONPATH=REPO),
+                            timeout=600)
+    if result.returncode != 0:
+        raise AssertionError(f'eval CLI failed:\n{result.stderr[-3000:]}')
+    with open(out + '.stats.json') as f:
+        stats = json.load(f)
+    keys = ['n_images', 'total_time', 'nn_time', 'decoder_time',
+            'images_per_second', 'stats', 'text_labels']
+    print(f'eval CLI on the card: exit 0 in '
+          f'{time.perf_counter() - start:.1f} s; stats '
+          f'{dict(zip(stats["text_labels"], stats["stats"]))}, '
+          f'{stats["n_images"]} images, {stats["images_per_second"]} '
+          f'images/s', flush=True)
+    if (list(stats) != keys or stats['n_images'] != 8
+            or stats['text_labels'][:3] != ['AP', 'AP0.5', 'AP0.75']
+            or not all(-1.0 <= v <= 1.0 for v in stats['stats'])):
+        raise AssertionError(f'eval CLI stats: {stats}')
+
+
+class FieldReplay:
+    """A model whose forward returns fixed fields (the golden ones)."""
+
+    def __init__(self, metas, fields, device):
+        self.head_metas, self.device = metas, torch.device(device)
+        self.fields = [torch.as_tensor(f, device=device) for f in fields]
+
+    def __call__(self, x):
+        if x.shape[0] != self.fields[0].shape[0]:
+            raise AssertionError(f'replay of {self.fields[0].shape[0]} '
+                                 f'images got a batch of {x.shape[0]}')
+        return self.fields
+
+
+def f32_profiles(predictor) -> None:
+    """The CPU decode with the card's configuration: f32 CifHr profiles
+    (``profile_bf16=False``, the kernel's), as ``hold_card_to_cpu``."""
+    config_for = predictor.decoder.config_for
+
+    def f32(image_hw):
+        config = config_for(image_hw)
+        return dataclasses.replace(config, cifhr=dataclasses.replace(
+            config.cifhr, profile_bf16=False))
+    predictor.decoder.config_for = f32
+
+
+def toykp_eval_module(port, size, n_images):
+    dm = port.toykp.ToyKp()
+    port.toykp.ToyKp.image_size = size
+    port.toykp.ToyKp.n_val_images = n_images
+    port.datasets.DataModule.batch_size = EVAL_BATCH
+    return dm
+
+
+def eval_golden(port, device='cuda') -> None:
+    """(b) The golden fields (the first four toykp eval images at 161 px of
+    a trained checkpoint) through the card's decode and the port's metric,
+    with and without force-complete: the card's decode held to the CPU's
+    (``hold_card_to_cpu``), the ten stats equal the CPU's (same f32
+    profiles) within 1e-6, the test's tolerance, and AP > 0.9.  ``device``
+    is the card's; a CPU rehearsal of the phase passes ``'cpu'``."""
+    from openpifpaf_tpu_torch.predictor import Predictor
+
+    data = np.load(os.path.join(FIXTURES, 'golden_toykp_fields.npz'))
+    for force_complete in (False, True):
+        port.decoder.CifCaf.force_complete = force_complete
+        stats = {}
+        for on_card in (True, False):
+            dm = toykp_eval_module(port, 161, 4)
+            for i, meta in enumerate(dm.head_metas):
+                meta.head_index, meta.base_stride = i, 16
+            where = device if on_card else 'cpu'
+            predictor = Predictor(model=FieldReplay(
+                dm.head_metas, [data['cif'], data['caf']], where),
+                device=where)
+            before = port.cif_hr.KERNEL_LAUNCHES
+            if not on_card:
+                f32_profiles(predictor)
+            stats[on_card] = port.eval_mod.Evaluator(dm, predictor).run()
+            if on_card and port.cif_hr.KERNEL_LAUNCHES != before + 1:
+                raise AssertionError('golden eval on the card did not '
+                                     'launch K1')
+            if on_card:
+                fields = predictor.model.fields
+                hold_card_to_cpu(
+                    port, predictor.decoder,
+                    predictor.decoder.batch_decoded(fields), fields,
+                    f'golden decode (force_complete={force_complete})')
+        card, cpu = stats[True]['stats'], stats[False]['stats']
+        diff = max(abs(a - b) for a, b in zip(card, cpu))
+        print(f'golden eval (force_complete={force_complete}), 4 images '
+              f'at 161 px: card {[round(v, 4) for v in card]}, CPU '
+              f'{[round(v, 4) for v in cpu]}, max|diff| {diff:.3e} (limit '
+              f'1e-6)', flush=True)
+        if not (diff <= 1e-6 and card[0] > 0.9):
+            raise AssertionError('golden eval: card and CPU stats differ or '
+                                 'AP <= 0.9')
+    port.decoder.CifCaf.force_complete = False
+
+
+def detecting_predictor(port, device='cuda'):
+    """sn2k16 at full width with the toykp heads, seeded weights, bf16, on
+    the card; its heads' confidence and scale biases shifted as in the
+    serve phase, so that every cell is a detection."""
+    from openpifpaf_tpu_torch.predictor import Predictor
+
+    metas = port.toykp.coco_head_metas()
+    predictor = Predictor(base_name='shufflenetv2k16', head_metas=metas,
+                          device=device, bf16=True, seed=0)
+    with torch.no_grad():
+        for head, meta in zip(predictor.model.module.head_nets, metas):
+            bias = head.conv.bias.view(meta.n_fields, meta.n_components)
+            bias[:, 0] = 2.0
+            bias[:, meta.n_components - meta.n_scales:] = 3.0
+    return predictor
+
+
+def zero_counts(port) -> None:
+    port.cif_hr.KERNEL_LAUNCHES = port.cif_hr.CUDA_LAUNCHES = 0
+    port.pair_chain.KERNEL_LAUNCHES = port.pair_chain.CUDA_LAUNCHES = 0
+    port.common.HOST_SYNCS = 0
+
+
+def eval_run(port, predictor, dm, label):
+    """One ``Evaluator.run`` with the counts set to 0 just before and read
+    just after; per variant (one ``dataset_loader`` call each, in variant
+    order) the K1 calls, K2 chain calls and images.  Keeps every batch's
+    fields and decode, and the first K1 and K2 inputs of each size."""
+    per_variant, decoded, captured = [], [], {}
+    loader_fn = predictor.dataset_loader
+    batch_decoded = predictor.decoder.batch_decoded
+    launch, launch_chain = (port.cif_hr.cif_hr_accumulate,
+                            port.pair_chain.pair_chain)
+
+    def counted(loader, **kw):
+        counts = [0, 0, 0]
+        per_variant.append(counts)
+        gen = loader_fn(loader, **kw)
+        while True:
+            k1 = port.cif_hr.KERNEL_LAUNCHES
+            k2 = port.pair_chain.KERNEL_LAUNCHES
+            try:
+                item = next(gen)
+            except StopIteration:
+                return
+            counts[0] += port.cif_hr.KERNEL_LAUNCHES - k1
+            counts[1] += port.pair_chain.KERNEL_LAUNCHES - k2
+            counts[2] += 1
+            yield item
+
+    def keep(fields):
+        out = batch_decoded(fields)
+        decoded.append((fields, out))
+        return out
+
+    def spy(*args, **kwargs):
+        captured.setdefault(('cif_hr', tuple(kwargs['out_hw'])), (
+            [a.clone() for a in args], dict(kwargs)))
+        return launch(*args, **kwargs)
+
+    def spy_chain(a, b, chain):
+        captured.setdefault(('pair_chain', tuple(a.shape)),
+                            (a.clone(), b.clone(), chain))
+        return launch_chain(a, b, chain)
+
+    predictor.dataset_loader = counted
+    predictor.decoder.batch_decoded = keep
+    port.cif_hr.cif_hr_accumulate = spy
+    port.pair_chain.pair_chain = spy_chain
+    predictor.total_nn_time = predictor.total_decoder_time = 0.0
+    predictor.total_images = 0
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(port)
+    try:
+        stats = port.eval_mod.Evaluator(dm, predictor).run()
+    finally:
+        port.cif_hr.cif_hr_accumulate = launch
+        port.pair_chain.pair_chain = launch_chain
+        del predictor.dataset_loader, predictor.decoder.batch_decoded
+    counts = dict(k1=port.cif_hr.KERNEL_LAUNCHES,
+                  k1_cuda=port.cif_hr.CUDA_LAUNCHES,
+                  k2=port.pair_chain.KERNEL_LAUNCHES,
+                  k2_cuda=port.pair_chain.CUDA_LAUNCHES,
+                  syncs=port.common.HOST_SYNCS,
+                  batches=len(decoded),
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f'eval {label}: {stats["n_images"]} images, '
+          f'{stats["images_per_second"]} images/s, total '
+          f'{stats["total_time"]} s, nn_time {stats["nn_time"]} s, '
+          f'decoder_time {stats["decoder_time"]} s; AP '
+          f'{stats["stats"][0]:.4f}; cif_hr calls {counts["k1"]} '
+          f'({counts["k1_cuda"]} CUDA kernels), pair_chain calls '
+          f'{counts["k2"]} ({counts["k2_cuda"]} CUDA kernels), host syncs '
+          f'{counts["syncs"]} ({counts["syncs"] / counts["batches"]:.1f} per '
+          f'batch of {EVAL_BATCH}); per variant [cif_hr, pair_chain, '
+          f'images] {per_variant}; peak device memory '
+          f'{counts["peak_gib"]:.2f} GiB', flush=True)
+    if stats['n_images'] != EVAL_IMAGES:
+        raise AssertionError(f'eval {label}: {stats["n_images"]} images')
+    return dict(stats=stats, counts=counts, per_variant=per_variant,
+                decoded=decoded, captured=captured)
+
+
+def eval_full_width(port, card, device='cuda') -> dict:
+    """(c) sn2k16 at full width with bias-shifted heads over 16 toykp
+    images at 385 px, batch 8, bf16: single-scale without and with
+    ``--force-complete-pose``, then ``--multi-scale`` with force-complete
+    (289, 385 and 481 px, each with its hflip: six variants).  Every
+    variant runs K1 once and K2 three times per batch.  (d) The card's
+    decodes against the port's CPU decode of the same fields
+    (``hold_at_budget``): every single-scale batch and the first image of
+    each multi-scale variant.  Returns the predictor and the runs."""
+    torch.backends.cudnn.benchmark = True
+    predictor = detecting_predictor(port, device)
+    dm = toykp_eval_module(port, EVAL_EDGE, EVAL_IMAGES)
+    plan = port.fused_shufflenet.supports_pair(predictor.model.module.basenet)
+    print(f'eval forward: the {"pair" if plan else "r3"} plan of '
+          f'models/fused_shufflenet.py', flush=True)
+    runs = {}
+    for label, force_complete, multi_scale in (
+            ('single-scale', False, False),
+            ('single-scale force-complete', True, False),
+            ('multi-scale force-complete', True, True)):
+        port.decoder.CifCaf.force_complete = force_complete
+        predictor.decoder._decoders.clear()
+        predictor.multi_scale = multi_scale
+        predictor.multi_scale_factors = EVAL_FACTORS
+        runs[label] = run = eval_run(port, predictor, dm, label)
+        n_variants = 2 * len(EVAL_FACTORS) if multi_scale else 1
+        want = [[2, 2 * len(SN2K16_CHAINS), EVAL_IMAGES]] * n_variants
+        if run['per_variant'] != want or run['counts']['k1_cuda'] != \
+                2 * run['counts']['k1']:
+            raise AssertionError(f'eval {label}: per variant '
+                                 f'{run["per_variant"]}, want {want}')
+        # the multi-scale run decodes batch 0 of each variant, then batch 1
+        held = run['decoded'][:n_variants] if multi_scale else run['decoded']
+        for i, (fields, on_card) in enumerate(held):
+            if multi_scale:
+                on_card = [t[:1] for t in on_card]
+                fields = [f[:1] for f in fields]
+            kind = 'variant' if multi_scale else 'batch'
+            hold_at_budget(port, predictor.decoder, on_card, fields,
+                           f'eval {label} {kind} {i}')
+    print(f'eval decoders built per image size: '
+          f'{sorted(predictor.decoder._decoders)}; pair_chain launch plans '
+          f'{port.pair_chain.launch_plan.cache_info()}', flush=True)
+    syncs = [runs[k]['counts']['syncs'] / runs[k]['counts']['batches']
+             for k in ('single-scale', 'single-scale force-complete')]
+    print(f'eval host syncs per batch of {EVAL_BATCH}: {syncs[0]:.1f} '
+          f'without force-complete, {syncs[1]:.1f} with ({card})',
+          flush=True)
+    port.decoder.CifCaf.force_complete = False
+    return predictor, runs
+
+
+def eval_kernels(port, predictor, runs) -> list:
+    """K1 and K2 held to their plain versions, and timed, on the inputs
+    the multi-scale eval handed them at 289 and 481 px (K2's launch plans
+    printed for every eval size, 385 px included)."""
+    captured = runs['multi-scale force-complete']['captured']
+    basenet = predictor.model.module.basenet
+    variants, _ = predictor.multiscale_variants(EVAL_EDGE)
+    results = []
+    for size in sorted({long_edge for long_edge, _ in variants}):
+        hr = (size + 1) // 2
+        if size != EVAL_EDGE:
+            args, kwargs = captured['cif_hr', (hr, hr)]
+            results.append(('cif_hr', measure_cif_hr(
+                port.cif_hr, f'eval {size} px', args, kwargs)))
+        for stage, n, _, c in SN2K16_CHAINS:
+            side = (size - 1) // 2 ** stage + 1
+            a, b, chain = captured['pair_chain', (EVAL_BATCH, side, side, c)]
+            name = f'eval {size} px stage {stage}'
+            if size == EVAL_EDGE:
+                print_plan(port.pair_chain, name, a)
+                continue
+            modules = [getattr(basenet, f'stage{stage}_{i}')
+                       for i in range(1, n + 1)]
+            results.append(('pair_chain', measure_pair_chain(
+                port.pair_chain, name, a, b, chain, modules)))
+    return results
+
+
+def eval_phase(port, card, checkpoint: str) -> dict:
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_cli(checkpoint, os.path.join(tmp, 'eval'))
+    eval_golden(port)
+    predictor, runs = eval_full_width(port, card)
+    checks = eval_kernels(port, predictor, runs)
+    print(f'eval phase: {time.perf_counter() - start:.1f} s', flush=True)
+    return dict(runs=runs, checks=checks)
 
 
 class _Port:
@@ -1060,6 +1453,8 @@ class _Port:
     def __init__(self):
         from openpifpaf_tpu_torch import (datasets, decoder, headmeta, kernels,
                                           losses, models, ops, training)
+        from openpifpaf_tpu_torch import eval as eval_mod
+        from openpifpaf_tpu_torch.models import fused_shufflenet
         from openpifpaf_tpu_torch.ops import cif_hr, common, pair_chain
         from openpifpaf_tpu_torch.plugins import toykp
         from openpifpaf_tpu_torch.plugins.coco import constants
@@ -1069,6 +1464,7 @@ class _Port:
         self.pair_chain = pair_chain
         self.datasets, self.losses, self.training, self.toykp = \
             datasets, losses, training, toykp
+        self.eval_mod, self.fused_shufflenet = eval_mod, fused_shufflenet
 
 
 def main() -> int:
@@ -1135,8 +1531,16 @@ def main() -> int:
         phase('profile')
         profile_batch(served['predictor'], served['images'])
 
-    phase('train')
-    train_phase(port, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase('train')
+        train_phase(port, card, os.path.join(tmp, 'model'))
+        phase('eval')
+        evaluated = eval_phase(port, card, os.path.join(tmp, 'model.npz'))
+    max_err = max([max_err] + [r['max_abs_err'] for kind, r in
+                               evaluated['checks'] if kind == 'cif_hr'])
+    k2_err = max([k2_err] + [r['max_abs_err'] for kind, r in
+                             evaluated['checks'] if kind == 'pair_chain'])
+    eval_counts = evaluated['runs']['multi-scale force-complete']['counts']
 
     print(json.dumps({'kernels': [{
         'name': 'cif_hr_accumulate', 'route': 'cuda',
@@ -1144,6 +1548,7 @@ def main() -> int:
         'replaces': 'openpifpaf_tpu/ops/pallas_cif_hr.py:68',
         'function': 'accumulate_pallas',
         'launches': served['launches'],
+        'eval_launches': eval_counts['k1'],
         'max_abs_err': max_err, 'max_abs_diff': max_err,
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
@@ -1153,6 +1558,7 @@ def main() -> int:
         'replaces': 'openpifpaf_tpu/ops/pallas_pair_chain.py:184',
         'function': 'pair_chain_pallas',
         'launches': served['chain_launches'],
+        'eval_launches': eval_counts['k2'],
         'max_abs_err': k2_err, 'max_abs_diff': k2_err,
         'ms': k2_main['ms'], 'plain_ms': k2_main['plain_ms'],
         'bound_ms': k2_main['bound_ms'], 'bound_by': k2_main['bound_by'],

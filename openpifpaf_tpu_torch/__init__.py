@@ -1,7 +1,7 @@
 """openpifpaf_tpu_torch: the PyTorch/CUDA port of ``openpifpaf_tpu``.
 
 The JAX package ``openpifpaf_tpu`` is the reference; this package rewrites
-its predict path in PyTorch for an NVIDIA Hopper card.  Beside the
+its predict, train and eval paths in PyTorch for an NVIDIA Hopper card.  Beside the
 standard library it imports ``torch`` and ``numpy`` only — nothing of JAX,
 flax, PIL or the JAX package — and keeps its own copies of the JAX package's framework-free
 modules (``headmeta``, ``annotation``, ``plugins/coco/constants``).

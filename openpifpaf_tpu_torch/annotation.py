@@ -86,13 +86,22 @@ class Annotation:
 
     def inverse_transform(self, meta) -> 'Annotation':
         """Map back to original image coordinates using transform meta
-        (``x_original = (x_transformed + offset) / scale``)."""
+        (``x_original = (x_transformed + offset) / scale``), then undo a
+        horizontal flip (mirror on the original canvas, swap left/right
+        rows).  The port has no rotation transform."""
         ann = self.copy()
         ann.data[:, 0] += meta['offset'][0]
         ann.data[:, 1] += meta['offset'][1]
         ann.data[:, 0] /= meta['scale'][0]
         ann.data[:, 1] /= meta['scale'][1]
         ann.joint_scales /= meta['scale'][0]
+
+        if meta.get('hflip', False):
+            # after undoing offset/scale the frame is the original canvas
+            w = meta.get('original_width_height', meta['width_height'])[0]
+            ann.data[:, 0] = -ann.data[:, 0] + (w - 1)
+            if meta.get('horizontal_swap') is not None:
+                ann.data[:] = meta['horizontal_swap'](ann.data)
         return ann
 
     def copy(self) -> 'Annotation':

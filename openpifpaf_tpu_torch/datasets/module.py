@@ -1,9 +1,9 @@
 """DataModule: the per-dataset contract.
 
 Port of ``openpifpaf_tpu/datasets/module.py``: a DataModule declares its
-``head_metas`` and provides the train and val loaders.  Class-level
-configuration (batch size 8, 0 workers) follows the ``cli``/``configure``
-pattern of ``datasets/factory.py``.  ``seed`` seeds the augmentations and
+``head_metas``, provides the train, val and eval loaders and its eval
+metrics.  Class-level configuration (batch size 8, 0 workers) follows the
+``cli``/``configure`` pattern of ``datasets/factory.py``.  ``seed`` seeds the augmentations and
 the shuffling, so a run is reproducible (the JAX loaders draw from unseeded
 generators).
 """
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from torch.utils.data import DataLoader
 
-from .collate import collate_images_targets_meta
+from .collate import collate_images_anns_meta, collate_images_targets_meta
 from .. import headmeta
 
 
@@ -50,10 +50,20 @@ class DataModule:
     def configure(cls, args):
         """Apply parsed CLI options to class attributes."""
 
+    def metrics(self):
+        """List of ``metric.Base`` instances for evaluation."""
+        raise NotImplementedError
+
     def train_loader(self):
         raise NotImplementedError
 
     def val_loader(self):
+        raise NotImplementedError
+
+    def eval_loader(self, *, long_edge=None, hflip=False):
+        """Eval loader; ``long_edge``/``hflip`` override the eval rescale
+        size and mirror the images (multi-scale eval: the Evaluator builds
+        one loader per (scale, hflip) variant and OKS-merges the decodes)."""
         raise NotImplementedError
 
     def loader(self, dataset, *, shuffle: bool, seed: int) -> DataLoader:
@@ -65,3 +75,12 @@ class DataModule:
                           num_workers=self.loader_workers,
                           worker_init_fn=_reseed_worker,
                           generator=torch.Generator().manual_seed(seed))
+
+    def eval_batches(self, dataset) -> DataLoader:
+        """Eval batches of ``batch_size`` in dataset order: no shuffle, the
+        last batch kept incomplete (``drop_last=False``), images with their
+        annotations and metas (``collate_images_anns_meta``)."""
+        return DataLoader(dataset, batch_size=self.batch_size,
+                          shuffle=False, drop_last=False,
+                          collate_fn=collate_images_anns_meta,
+                          num_workers=self.loader_workers)

@@ -1,7 +1,7 @@
-"""Field decoders (CifCaf)."""
+"""Field decoders (CifCaf), their CLI and the OKS matrix."""
 
 from .cifcaf import CifCaf
 from .decoder import Decoder
-from .factory import DECODERS, factory
+from .factory import DECODERS, cli, configure, factory
 
-__all__ = ['CifCaf', 'Decoder', 'DECODERS', 'factory']
+__all__ = ['CifCaf', 'Decoder', 'DECODERS', 'cli', 'configure', 'factory']

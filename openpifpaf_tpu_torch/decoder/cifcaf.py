@@ -2,13 +2,16 @@
 
 Port of ``openpifpaf_tpu/decoder/cifcaf.py``.  Reference parity:
 ``src/openpifpaf/decoder/cifcaf.py:~40``.  The class-level thresholds are
-the JAX package's defaults (``cifcaf.py:28-46``); ``config_for`` builds the
-same ``CifCafConfig`` as ``cifcaf.py:153-193``.  Force-complete, dense
-connections and the CLI flags are not ported yet.
+the JAX package's defaults (``cifcaf.py:28-46``) with the same CLI flags
+(``cifcaf.py:66-123``); ``config_for`` builds the same ``CifCafConfig`` as
+``cifcaf.py:153-193``, force-complete included.  Dense connections are not
+ported yet: a dense head with ``--dense-connections`` raises.
 """
 
 from __future__ import annotations
 
+import argparse
+import logging
 from typing import List, Tuple
 
 import numpy as np
@@ -21,6 +24,8 @@ from ..device import resolve_device
 from ..ops import CifCafConfig, make_batch_decoder
 from ..ops import caf_scored, cif_hr, growth, nms, seeds
 
+LOG = logging.getLogger(__name__)
+
 
 class CifCaf(Decoder):
     # class-level configuration (reference static thresholds)
@@ -31,6 +36,7 @@ class CifCaf(Decoder):
     caf_score_th = 0.2
     cif_hr_v_threshold = 0.1
     force_complete = False
+    force_complete_caf_th = 0.001  # relaxed CAF threshold in that mode
     reverse_match = True
     connection_blend = True
     dense_connections = 0.0
@@ -42,15 +48,73 @@ class CifCaf(Decoder):
 
     def __init__(self, cif_meta: headmeta.Cif, caf_meta: headmeta.Caf,
                  dense_caf_meta: headmeta.Caf = None, *, device=None):
-        if self.force_complete:
-            raise NotImplementedError('force-complete decoding is not '
-                                      'ported yet')
         if dense_caf_meta is not None and self.dense_connections:
             raise NotImplementedError('dense connections are not ported yet')
         self.cif_meta = cif_meta
         self.caf_meta = caf_meta
         self.device = resolve_device(device)
         self._decoders = {}  # image_hw -> batched decode
+
+    @classmethod
+    def cli(cls, parser: argparse.ArgumentParser) -> None:
+        group = parser.add_argument_group('CifCaf decoder')
+        group.add_argument('--seed-threshold', default=cls.seed_threshold,
+                           type=float, help='minimum seed value')
+        group.add_argument('--keypoint-threshold',
+                           default=cls.keypoint_threshold, type=float,
+                           help='minimum grown keypoint score')
+        group.add_argument('--keypoint-threshold-rel',
+                           default=cls.keypoint_threshold_rel, type=float,
+                           help='min keypoint score relative to source joint')
+        group.add_argument('--instance-threshold',
+                           default=cls.instance_threshold, type=float,
+                           help='minimum pose score')
+        group.add_argument('--caf-score-th', default=cls.caf_score_th,
+                           type=float, help='CAF candidate threshold')
+        group.add_argument('--force-complete-pose', dest='force_complete',
+                           default=cls.force_complete, action='store_true',
+                           help='relaxed second growth pass to fill poses')
+        group.add_argument('--force-complete-caf-th',
+                           default=cls.force_complete_caf_th, type=float,
+                           help='CAF candidate threshold used with '
+                                '--force-complete-pose')
+        group.add_argument('--no-reverse-match', dest='reverse_match',
+                           default=cls.reverse_match, action='store_false',
+                           help='disable reverse-match confirmation')
+        group.add_argument('--connection-method',
+                           default='blend' if cls.connection_blend else 'max',
+                           choices=('blend', 'max'),
+                           help='association candidate combination')
+        group.add_argument('--dense-connections', nargs='?',
+                           type=float, default=cls.dense_connections,
+                           const=1.0,
+                           help='use dense skeleton connections at this '
+                                'confidence scale (not ported: refused '
+                                'with a dense head)')
+        group.add_argument('--decoder-max-poses', default=cls.max_poses,
+                           type=int, help='static pose budget per image')
+        group.add_argument('--decoder-max-seeds', default=cls.max_seeds,
+                           type=int, help='static seed budget per image')
+        group.add_argument('--cifhr-max-active', default=cls.cif_hr_max_active,
+                           type=int,
+                           help='CifHr active-cell compaction budget per '
+                                'field (0 = exact dense splat)')
+
+    @classmethod
+    def configure(cls, args: argparse.Namespace) -> None:
+        cls.seed_threshold = args.seed_threshold
+        cls.keypoint_threshold = args.keypoint_threshold
+        cls.keypoint_threshold_rel = args.keypoint_threshold_rel
+        cls.instance_threshold = args.instance_threshold
+        cls.caf_score_th = args.caf_score_th
+        cls.force_complete = args.force_complete
+        cls.force_complete_caf_th = args.force_complete_caf_th
+        cls.reverse_match = args.reverse_match
+        cls.connection_blend = args.connection_method == 'blend'
+        cls.dense_connections = args.dense_connections
+        cls.max_poses = args.decoder_max_poses
+        cls.max_seeds = args.decoder_max_seeds
+        cls.cif_hr_max_active = args.cifhr_max_active
 
     @classmethod
     def match(cls, head_metas) -> bool:
@@ -62,7 +126,11 @@ class CifCaf(Decoder):
     def factory(cls, head_metas, *, device=None) -> List['CifCaf']:
         if not cls.match(head_metas):
             return []
-        return [cls(head_metas[0], head_metas[1], device=device)]
+        dense = None
+        if len(head_metas) >= 3 and isinstance(head_metas[2], headmeta.Caf):
+            dense = head_metas[2]
+        return [cls(head_metas[0], head_metas[1], dense_caf_meta=dense,
+                    device=device)]
 
     def config_for(self, image_hw: Tuple[int, int]) -> CifCafConfig:
         """The decode configuration; on the card the CifHr profiles are
@@ -79,23 +147,37 @@ class CifCaf(Decoder):
             seeds=seeds.SeedsConfig(
                 threshold=self.seed_threshold,
                 max_seeds=self.max_seeds),
+            # the first growth pass always takes candidates at the normal
+            # threshold: relaxed ones would evict the strong ones from the
+            # fixed top-C budget
             caf=caf_scored.CafScoredConfig(
                 score_th=self.caf_score_th,
                 max_candidates=self.max_caf_candidates),
+            # --force-complete-pose: a separately thresholded candidate set
+            # with twice the budget, taken only by the second pass
+            caf_fc=(caf_scored.CafScoredConfig(
+                score_th=self.force_complete_caf_th,
+                max_candidates=2 * self.max_caf_candidates)
+                if self.force_complete else None),
             growth=growth.GrowthConfig(
                 keypoint_threshold=self.keypoint_threshold,
                 keypoint_threshold_rel=self.keypoint_threshold_rel,
                 reverse_match=self.reverse_match,
                 connection_blend=self.connection_blend,
-                max_poses=self.max_poses),
+                max_poses=self.max_poses,
+                force_complete=self.force_complete),
             nms=nms.NMSConfig(
                 instance_threshold=self.instance_threshold,
-                keypoint_threshold=self.keypoint_threshold),
+                # force-complete implies keypoint_threshold 0.0 at NMS, or
+                # the joints the relaxed second pass placed are zeroed again
+                keypoint_threshold=(0.0 if self.force_complete
+                                    else self.keypoint_threshold)),
         )
 
     def _decoder_for(self, image_hw: Tuple[int, int]):
         key = tuple(image_hw)
         if key not in self._decoders:
+            LOG.info('building the decoder for image size %s', key)
             self._decoders[key] = make_batch_decoder(
                 cif_meta=self.cif_meta, caf_meta=self.caf_meta,
                 config=self.config_for(key), device=self.device)

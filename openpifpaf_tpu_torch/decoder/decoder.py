@@ -7,11 +7,22 @@ computed on; the decode result crosses to the host once per batch.
 
 from __future__ import annotations
 
+import argparse
 from typing import List
 
 
 class Decoder:
     """Base class for field decoders."""
+
+    profile = None  # output file for a cProfile of decode (--profile-decoder)
+
+    @classmethod
+    def cli(cls, parser: argparse.ArgumentParser) -> None:
+        """Add decoder CLI options."""
+
+    @classmethod
+    def configure(cls, args: argparse.Namespace) -> None:
+        """Apply parsed CLI options."""
 
     @classmethod
     def match(cls, head_metas) -> bool:

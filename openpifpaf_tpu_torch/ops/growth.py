@@ -14,8 +14,11 @@ cap.  Ties keep JAX's order: ``argmax`` returns the first maximum and every
 ``argsort`` is stable.  Scatters write index sets without duplicates, or
 spill into a pad column that is never read, as the JAX version does.
 
-In scope: the defaults of ``decoder/cifcaf.py`` — ``force_complete``,
-``placements_per_round > 1`` and ``seed_dedup`` raise NotImplementedError.
+In scope: the defaults of ``decoder/cifcaf.py`` and ``force_complete``
+(the relaxed second pass of each wave, ``growth.py:460-497``, on its own
+candidate set); ``placements_per_round > 1`` and ``seed_dedup`` raise
+NotImplementedError.  The second pass is a second host loop, so it adds
+host syncs (``common.HOST_SYNCS``) to every wave.
 """
 
 from __future__ import annotations
@@ -44,14 +47,14 @@ class GrowthConfig:
     reverse_match: bool = True
     connection_blend: bool = True         # --connection-method=blend|max
     max_poses: int = 96
-    force_complete: bool = False
+    force_complete: bool = False          # relaxed second pass
+    force_complete_threshold: float = 0.001
     placements_per_round: int = 1
     max_waves: int = 8
     seed_dedup: bool = False
 
     def check_supported(self) -> None:
-        for name, bad in (('force_complete', self.force_complete),
-                          ('placements_per_round > 1',
+        for name, bad in (('placements_per_round > 1',
                            self.placements_per_round > 1),
                           ('seed_dedup', self.seed_dedup)):
             if bad:
@@ -176,7 +179,8 @@ def _weighted_best(qx, qy, sigma, cxs, cys, cxt, cyt, cst, cvalid, cscore,
 
 
 def _connection_values_at(poses, placed, pose_valid, dv, et: EdgeTables,
-                          config: GrowthConfig, q_sel, q_valid):
+                          config: GrowthConfig, reverse_match: bool, q_sel,
+                          q_valid):
     """Best association per (pose, directed edge ``q_sel``).
 
     q_sel, q_valid: (B, P, D) — the out-edges of the joint each pose placed
@@ -207,7 +211,7 @@ def _connection_values_at(poses, placed, pose_valid, dv, et: EdgeTables,
         sel(c_yt, q_safe), sel(c_st, q_safe), sel(c_valid, q_safe),
         sel(c_score, q_safe), config, config.connection_blend)
 
-    if config.reverse_match:
+    if reverse_match:
         # walk back from the found target along the reversed edge (q ^ 1)
         # and require landing near the source joint
         rev = torch.clamp(q_safe ^ 1, max=q_n - 1)
@@ -227,9 +231,23 @@ def _connection_values_at(poses, placed, pose_valid, dv, et: EdgeTables,
     return value, tx, ty, ts, new_v
 
 
+def _connection_values(poses, placed, pose_valid, dv, et: EdgeTables,
+                       config: GrowthConfig, reverse_match: bool):
+    """Best association per (pose, directed edge), every edge at once:
+    ``_connection_values_at`` with all Q edges selected for every pose.
+    Returns value, target x/y/scale and new joint score, each (B, P, Q)."""
+    b, p = pose_valid.shape
+    q_n = et.src.shape[0]
+    q_all = torch.arange(q_n, device=poses.device).expand(b, p, q_n)
+    return _connection_values_at(poses, placed, pose_valid, dv, et, config,
+                                 reverse_match, q_all,
+                                 torch.ones_like(q_all, dtype=torch.bool))
+
+
 def grow(poses: torch.Tensor, placed: torch.Tensor, pose_valid: torch.Tensor,
          dv, et: EdgeTables, config: GrowthConfig, *,
-         fresh_onehot: torch.Tensor, active: torch.Tensor = None):
+         fresh_onehot: torch.Tensor, active: torch.Tensor = None,
+         force_dv=None):
     """Frontier relaxation until no pose places a joint, or K-1 rounds.
 
     poses (B, P, K, 4) [x, y, v, scale]; placed (B, P, K); pose_valid
@@ -240,74 +258,107 @@ def grow(poses: torch.Tensor, placed: torch.Tensor, pose_valid: torch.Tensor,
     A (pose, edge) connection depends only on its source joint, which never
     moves once placed, so it is computed once, in the round after the
     source lands, and cached in (B, P, Q+1) tables (column Q is the pad
-    spill).  ``active`` (B,) limits the loop to images still iterating in
+    spill).  ``active`` (B,) limits the loops to images still iterating in
     an enclosing loop.
+
+    With ``config.force_complete`` a second pass follows on the grown
+    poses: the same rounds with ``force_complete_threshold``, no relative
+    gate and no reverse match, on ``force_dv`` (the ``dirviews`` of the
+    separately thresholded candidate set; ``dv`` when None).  It starts
+    from every connection computed at once (``_connection_values``), as
+    the JAX pass does (``growth.py:460-497``), not from the fresh joints.
     """
     b, p, k = placed.shape
     q_n = et.src.shape[0]
-    th = config.keypoint_threshold
-    rel = config.keypoint_threshold_rel
     rows_k = torch.arange(k, device=poses.device)
 
-    def body(state, _):
-        poses, placed, rounds_done, _, value, tx, ty, ts, new_v, last = state
+    def make_body(th: float, rel: float, reverse: bool, pass_dv):
+        """One relaxation round at threshold ``th``, relative gate ``rel``,
+        with or without the reverse match, on candidates ``pass_dv``."""
+        def body(state, _):
+            poses, placed, rounds_done, _, value, tx, ty, ts, new_v, last = \
+                state
 
-        # connections that became computable: the joint placed last round
-        # (first True of ``last``, as JAX's stable argsort of ~last)
-        j_new = torch.argmax(last.to(torch.uint8), dim=2)            # (B, P)
-        new_ok = _take(last, j_new)
-        q_sel = et.out_edges[j_new]                                  # (B,P,D)
-        q_ok = (q_sel < q_n) & new_ok[..., None]
-        fresh = _connection_values_at(poses, placed, pose_valid, dv, et,
-                                      config, q_sel, q_ok)
-        q_scatter = torch.where(q_ok, q_sel, q_n)                    # pad spill
-        value, tx, ty, ts, new_v = (t.scatter(2, q_scatter, f) for t, f in
-                                    zip((value, tx, ty, ts, new_v), fresh))
+            # connections that became computable: the joint placed last
+            # round (first True of ``last``, as JAX's stable argsort of
+            # ~last)
+            j_new = torch.argmax(last.to(torch.uint8), dim=2)        # (B, P)
+            new_ok = _take(last, j_new)
+            q_sel = et.out_edges[j_new]                              # (B,P,D)
+            q_ok = (q_sel < q_n) & new_ok[..., None]
+            fresh = _connection_values_at(poses, placed, pose_valid,
+                                          pass_dv, et, config, reverse,
+                                          q_sel, q_ok)
+            q_scatter = torch.where(q_ok, q_sel, q_n)               # pad spill
+            value, tx, ty, ts, new_v = (
+                t.scatter(2, q_scatter, f) for t, f in
+                zip((value, tx, ty, ts, new_v), fresh))
 
-        vs = poses[:, :, et.src, 2]
-        act = (placed[:, :, et.src] & ~placed[:, :, et.tgt]
-               & pose_valid[..., None])
-        nv = new_v[..., :q_n]
-        ok = (nv > th) & (nv > rel * vs) & act
-        conn = torch.where(ok, value[..., :q_n], 0.0)                # (B,P,Q)
-        conn_kd = F.pad(conn, (0, 1))[:, :, et.in_edges]             # (B,P,K,Din)
-        # in-edge rows ascend in q: the first maximum keeps the lowest q
-        d_star = torch.argmax(conn_kd, dim=-1)                       # (B,P,K)
-        best_v = _take(conn_kd, d_star)
-        best_q = et.in_edges[rows_k, d_star]
+            vs = poses[:, :, et.src, 2]
+            act = (placed[:, :, et.src] & ~placed[:, :, et.tgt]
+                   & pose_valid[..., None])
+            nv = new_v[..., :q_n]
+            ok = (nv > th) & (nv > rel * vs) & act
+            conn = torch.where(ok, value[..., :q_n], 0.0)            # (B,P,Q)
+            conn_kd = F.pad(conn, (0, 1))[:, :, et.in_edges]     # (B,P,K,Din)
+            # in-edge rows ascend in q: the first maximum keeps the lowest q
+            d_star = torch.argmax(conn_kd, dim=-1)                   # (B,P,K)
+            best_v = _take(conn_kd, d_star)
+            best_q = et.in_edges[rows_k, d_star]
 
-        j_star = torch.argmax(best_v, dim=-1)                        # (B, P)
-        slot_ok = (_take(best_v, j_star) > 0.0) & pose_valid
-        j_safe = torch.where(slot_ok, j_star, k)                     # pad spill
-        bq = _take(best_q, j_star)
-        new_data = torch.stack([_take(tx, bq), _take(ty, bq),
-                                _take(new_v, bq), _take(ts, bq)], dim=-1)
-        poses = F.pad(poses, (0, 0, 0, 1)).scatter(
-            2, j_safe[:, :, None, None].expand(b, p, 1, 4),
-            new_data[:, :, None, :])[:, :, :k]
-        onehot = torch.zeros(b, p, k + 1, dtype=torch.bool,
-                             device=poses.device)
-        onehot[torch.arange(b, device=poses.device)[:, None],
-               torch.arange(p, device=poses.device)[None, :], j_safe] = True
-        onehot = onehot[..., :k]
-        return (poses, placed | onehot, rounds_done + 1, slot_ok.any(dim=1),
-                value, tx, ty, ts, new_v, onehot)
+            j_star = torch.argmax(best_v, dim=-1)                    # (B, P)
+            slot_ok = (_take(best_v, j_star) > 0.0) & pose_valid
+            j_safe = torch.where(slot_ok, j_star, k)                # pad spill
+            bq = _take(best_q, j_star)
+            new_data = torch.stack([_take(tx, bq), _take(ty, bq),
+                                    _take(new_v, bq), _take(ts, bq)], dim=-1)
+            poses = F.pad(poses, (0, 0, 0, 1)).scatter(
+                2, j_safe[:, :, None, None].expand(b, p, 1, 4),
+                new_data[:, :, None, :])[:, :, :k]
+            onehot = torch.zeros(b, p, k + 1, dtype=torch.bool,
+                                 device=poses.device)
+            onehot[torch.arange(b, device=poses.device)[:, None],
+                   torch.arange(p, device=poses.device)[None, :],
+                   j_safe] = True
+            onehot = onehot[..., :k]
+            return (poses, placed | onehot, rounds_done + 1,
+                    slot_ok.any(dim=1), value, tx, ty, ts, new_v, onehot)
+
+        return body
 
     def cond(state):
         return (state[2] < k - 1) & state[3]
 
+    def run(poses, placed, body, tables, new_onehot):
+        state = (poses, placed, torch.zeros(b, dtype=torch.int64,
+                                            device=poses.device),
+                 torch.ones(b, dtype=torch.bool, device=poses.device),
+                 *tables, new_onehot)
+        state = while_loop(cond, body, state, active=active)
+        return state[0], state[1]
+
     table = torch.zeros(b, p, q_n + 1, device=poses.device)
-    state = (poses, placed, torch.zeros(b, dtype=torch.int64,
-                                        device=poses.device),
-             torch.ones(b, dtype=torch.bool, device=poses.device),
-             table, table, table, table, table, fresh_onehot)
-    state = while_loop(cond, body, state, active=active)
-    return state[0], state[1]
+    poses, placed = run(
+        poses, placed,
+        make_body(config.keypoint_threshold, config.keypoint_threshold_rel,
+                  config.reverse_match, dv),
+        (table,) * 5, fresh_onehot)
+    if config.force_complete:
+        fc_dv = dv if force_dv is None else force_dv
+        full = _connection_values(poses, placed, pose_valid, fc_dv, et,
+                                  config, reverse_match=False)
+        poses, placed = run(
+            poses, placed,
+            make_body(config.force_complete_threshold, 0.0, False, fc_dv),
+            tuple(F.pad(t, (0, 1)) for t in full),
+            torch.zeros(b, p, k, dtype=torch.bool, device=poses.device))
+    return poses, placed
 
 
 def grow_waves(seeds: Seeds, cand: CafCandidates, edges: DirectedEdges, *,
                n_keypoints: int, image_hw, config: GrowthConfig,
-               nms_config: nms_mod.NMSConfig):
+               nms_config: nms_mod.NMSConfig,
+               force_cand: CafCandidates = None):
     """Wave-recycled growth: the reference's seed-budget semantics.
 
     Grow a wave, run the exact seed-claim fixpoint, then refill the freed
@@ -315,6 +366,9 @@ def grow_waves(seeds: Seeds, cand: CafCandidates, edges: DirectedEdges, *,
     those — claimed seeds never consume ``max_poses`` budget, as in the
     sequential reference (``cifcaf.cpp:~140``).  Stops as soon as a wave
     seeds nothing, or after ``max_waves``.
+
+    ``force_cand``: the force-complete pass's own candidate set (``cand``
+    when None), used only with ``config.force_complete``.
 
     Returns ``(poses, placed, alive, n_dropped, seed_f, seed_rank)``, each
     with a leading batch axis; ``alive`` includes the seed-claim
@@ -329,6 +383,7 @@ def grow_waves(seeds: Seeds, cand: CafCandidates, edges: DirectedEdges, *,
     dev = sx.device
     et = edge_tables(edges, k, dev)
     dv = dirviews(cand, edges)
+    force_dv = None if force_cand is None else dirviews(force_cand, edges)
     rows_p = torch.arange(p, device=dev)
     bi = torch.arange(b, device=dev)[:, None]
 
@@ -382,7 +437,8 @@ def grow_waves(seeds: Seeds, cand: CafCandidates, edges: DirectedEdges, *,
         fresh = torch.zeros(b, p, k, dtype=torch.bool, device=dev)
         fresh[bi, free_slots, f_sel] = assign
         poses, placed = grow(poses, placed, slot_valid, dv, et, config,
-                             fresh_onehot=fresh, active=running)
+                             fresh_onehot=fresh, active=running,
+                             force_dv=force_dv)
         alive = nms_mod.seed_claim_suppression(
             poses, placed, slot_valid, slot_f, image_hw=image_hw,
             config=nms_config, rank=slot_rank, active=running)

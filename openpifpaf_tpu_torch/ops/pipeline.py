@@ -31,7 +31,9 @@ class CifCafConfig:
     cifhr: cif_hr.CifHrConfig = cif_hr.CifHrConfig()
     seeds: seeds.SeedsConfig = seeds.SeedsConfig()
     caf: caf_scored.CafScoredConfig = caf_scored.CafScoredConfig()
-    caf_fc: caf_scored.CafScoredConfig = None   # force-complete: not ported
+    # separately thresholded candidate set consumed only by the relaxed
+    # force-complete second pass; None = reuse the first-pass candidates
+    caf_fc: caf_scored.CafScoredConfig = None
     growth: growth.GrowthConfig = growth.GrowthConfig()
     nms: nms.NMSConfig = nms.NMSConfig()
 
@@ -59,6 +61,7 @@ class FrontEnd(NamedTuple):
 
     sds: seeds.Seeds
     cands: caf_scored.CafCandidates
+    cands_fc: caf_scored.CafCandidates   # None unless force-complete 2nd set
     scale_px: torch.Tensor               # (B, Fk, H, W) CIF scale field, px
     n_dropped_cif: torch.Tensor
     n_dropped_caf: torch.Tensor
@@ -103,9 +106,18 @@ def decode_front_end(cif_fields: torch.Tensor, caf_fields: torch.Tensor, *,
     cands = caf_scored.score(caf, hr, skeleton, stride=stride,
                              hr_spacing=config.cifhr.spacing,
                              config=config.caf, confidence_scales=conf_scales)
-    return FrontEnd(sds=sds, cands=cands, scale_px=scale_px,
-                    n_dropped_cif=n_dropped_cif,
-                    n_dropped_caf=cands.n_dropped)
+    n_dropped_caf = cands.n_dropped
+    cands_fc = None
+    if config.growth.force_complete and config.caf_fc is not None:
+        # the force-complete pass's own candidates, on the same CifHr map
+        cands_fc = caf_scored.score(caf, hr, skeleton, stride=stride,
+                                    hr_spacing=config.cifhr.spacing,
+                                    config=config.caf_fc,
+                                    confidence_scales=conf_scales)
+        n_dropped_caf = n_dropped_caf + cands_fc.n_dropped
+    return FrontEnd(sds=sds, cands=cands, cands_fc=cands_fc,
+                    scale_px=scale_px, n_dropped_cif=n_dropped_cif,
+                    n_dropped_caf=n_dropped_caf)
 
 
 def finalize_poses(poses: torch.Tensor, placed: torch.Tensor,
@@ -140,14 +152,6 @@ def finalize_poses(poses: torch.Tensor, placed: torch.Tensor,
     return poses_out, joint_scales, scores, valid
 
 
-def check_supported(config: CifCafConfig) -> None:
-    """Raise NotImplementedError for decode options the port lacks."""
-    config.growth.check_supported()
-    if config.caf_fc is not None:
-        raise NotImplementedError('force-complete candidates (caf_fc) are '
-                                  'not ported yet')
-
-
 def decode_cifcaf(cif_fields: torch.Tensor, caf_fields: torch.Tensor, *,
                   cif_meta, caf_meta, config: CifCafConfig) -> DecodedPoses:
     """Decode a batch of raw (packed) CIF/CAF head tensors.
@@ -155,7 +159,6 @@ def decode_cifcaf(cif_fields: torch.Tensor, caf_fields: torch.Tensor, *,
     cif_fields: (B, Fk, 5, H, W); caf_fields: (B, Fe, 9, H, W) — raw head
     outputs (activations applied here).
     """
-    check_supported(config)
     skeleton = np.asarray(caf_meta.skeleton, np.int64) - 1
     score_weights = (cif_meta.score_weights
                      if cif_meta.score_weights is not None
@@ -170,7 +173,8 @@ def decode_cifcaf(cif_fields: torch.Tensor, caf_fields: torch.Tensor, *,
     edges = growth.directed_edges(skeleton)
     poses, placed, pose_valid, n_dropped_poses, _, _ = growth.grow_waves(
         fe.sds, fe.cands, edges, n_keypoints=fk, image_hw=config.image_hw,
-        config=config.growth, nms_config=config.nms)
+        config=config.growth, nms_config=config.nms,
+        force_cand=fe.cands_fc)
 
     # 5-6) joint scale refinement + keypoint NMS
     poses_out, joint_scales, scores, valid = finalize_poses(
@@ -194,7 +198,7 @@ def make_batch_decoder(*, cif_meta, caf_meta, config: CifCafConfig,
     -> DecodedPoses`` on ``device`` (``None``: the card, raising without
     CUDA).  Fields given as numpy arrays or tensors elsewhere are moved."""
     device = resolve_device(device)
-    check_supported(config)
+    config.growth.check_supported()
 
     @torch.no_grad()
     def decode(cif_fields, caf_fields) -> DecodedPoses:

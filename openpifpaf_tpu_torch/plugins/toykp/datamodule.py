@@ -1,9 +1,11 @@
-"""Synthetic keypoint datamodule — the training path's workload.
+"""Synthetic keypoint datamodule — the training and eval paths' workload.
 
 Port of ``openpifpaf_tpu/plugins/toykp/datamodule.py`` (``ToyKpDataset``,
 ``ToyKp``): person-like keypoint constellations rendered as distinctive
 blobs, with the full COCO CIF (17 × 5) and CAF (19 × 9) heads, so training
-at full width needs no download.  ``ground_truth`` and ``render`` do the
+and eval at full width need no download.  The eval loader (the val
+images, seed 1000) takes multi-scale variants (``long_edge``, ``hflip``)
+and ``metrics`` scores it with the COCO keypoint metric.  ``ground_truth`` and ``render`` do the
 same numpy arithmetic; the image is a (3, H, W) tensor in uint8 levels
 instead of a PIL image.  The augmentations draw from one generator seeded
 from the data module's ``seed``.
@@ -16,7 +18,7 @@ import argparse
 import numpy as np
 import torch
 
-from ... import encoder, headmeta, transforms
+from ... import encoder, headmeta, metric, transforms
 from ...datasets import DataModule
 from ..coco import constants
 
@@ -155,12 +157,16 @@ class ToyKp(DataModule):
         cls.image_size = args.toykp_image_size
         cls.augmentation = args.toykp_augmentation
 
-    def preprocess(self, rng: np.random.Generator):
-        steps = [transforms.NormalizeAnnotations(
+    @staticmethod
+    def _normalize():
+        return transforms.NormalizeAnnotations(
             keypoints=constants.COCO_KEYPOINTS,
             skeleton=constants.COCO_PERSON_SKELETON,
             sigmas=constants.COCO_PERSON_SIGMAS,
-            score_weights=constants.COCO_PERSON_SCORE_WEIGHTS)]
+            score_weights=constants.COCO_PERSON_SCORE_WEIGHTS)
+
+    def preprocess(self, rng: np.random.Generator):
+        steps = [self._normalize()]
         if self.augmentation:
             steps += [
                 transforms.RandomApply(
@@ -181,6 +187,19 @@ class ToyKp(DataModule):
         ]
         return transforms.Compose(steps)
 
+    def _eval_preprocess(self, long_edge=None, hflip=False):
+        long_edge = long_edge or self.image_size
+        steps = [self._normalize()]
+        if hflip:
+            steps.append(transforms.HFlip(constants.COCO_KEYPOINTS,
+                                          constants.HFLIP))
+        steps += [
+            transforms.RescaleAbsolute(long_edge),
+            transforms.CenterPad(long_edge),
+            transforms.EVAL_TRANSFORM,
+        ]
+        return transforms.Compose(steps)
+
     def _dataset(self, n_images: int, seed: int, rng_seed: int):
         rng = np.random.default_rng(rng_seed)
         return ToyKpDataset(n_images, self.image_size, self.preprocess(rng),
@@ -194,3 +213,16 @@ class ToyKp(DataModule):
         return self.loader(self._dataset(self.n_val_images, 1000,
                                          self.seed + 1),
                            shuffle=False, seed=self.seed + 1)
+
+    def eval_loader(self, *, long_edge=None, hflip=False):
+        """The ``n_val_images`` images of seed 1000 (the val set), rendered
+        at ``image_size``, rescaled and padded to ``long_edge`` (default
+        ``image_size``), mirrored with ``hflip``."""
+        return self.eval_batches(ToyKpDataset(
+            self.n_val_images, self.image_size,
+            self._eval_preprocess(long_edge, hflip), seed=1000))
+
+    def metrics(self):
+        return [metric.Coco(
+            ground_truth_from_loader=True,
+            keypoint_oks_sigmas=constants.COCO_PERSON_SIGMAS)]

@@ -1,29 +1,42 @@
 """Predictor: batched inference API — preprocess, forward, decode.
 
-Port of the predict path of ``openpifpaf_tpu/predictor.py`` (``:200-238``).
-Reference parity: ``src/openpifpaf/predictor.py:~60``.  Images enter as
-NHWC numpy arrays (``(H, W, 3)`` uint8 each), are rescaled and centre
-padded to one square size, run through the model (NCHW inside) and the
-batched CifCaf decode on the same device, and the annotations are mapped
-back to the original image coordinates.  Multi-scale, hflip and
-data-parallel eval are not ported yet.
+Port of ``openpifpaf_tpu/predictor.py``.  Reference parity:
+``src/openpifpaf/predictor.py:~60``.  ``batch`` and ``numpy_images`` take
+NHWC numpy arrays (``(H, W, 3)`` uint8 each), rescale and centre pad them
+to one square size, run the model (NCHW inside) and the batched CifCaf
+decode on the same device, and map the annotations back to the original
+image coordinates.  ``dataset``/``dataset_loader`` do the same for a data
+module's eval batches (images already preprocessed by
+``preprocess_factory``'s transforms), and ``merge_annotations`` with
+``multiscale_variants`` make the multi-scale eval.  ``images(paths)``
+(no image reader without PIL) and data-parallel eval are not ported.
 """
 
 from __future__ import annotations
 
+import argparse
+import cProfile
 import time
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.data import DataLoader
 
-from . import decoder as decoder_mod, models, transforms
+from . import datasets, decoder as decoder_mod, models, transforms
+from .decoder.pose_similarity import oks_matrix
 from .device import resolve_device
 
 
 class Predictor:
     batch_size = 1
     long_edge = 641
+    loader_workers: Optional[int] = None
+    # multi-scale prediction: decode at several long edges (and their
+    # hflips) and merge with OKS suppression
+    multi_scale = False
+    multi_scale_hflip = True
+    multi_scale_factors = (0.75, 1.0, 1.25)
 
     def __init__(self, *, checkpoint: Optional[str] = None,
                  model: Optional[models.Model] = None,
@@ -48,6 +61,47 @@ class Predictor:
         self.last_preprocess_time = 0.0
         self.last_nn_time = 0.0
         self.last_decoder_time = 0.0
+        self.total_nn_time = 0.0
+        self.total_decoder_time = 0.0
+        self.total_images = 0
+
+    @classmethod
+    def cli(cls, parser: argparse.ArgumentParser) -> None:
+        group = parser.add_argument_group('Predictor')
+        group.add_argument('--long-edge', default=cls.long_edge, type=int,
+                           help='rescale the long side and pad to this size')
+        group.add_argument('--predictor-batch-size',
+                           dest='predictor_batch_size',
+                           default=cls.batch_size, type=int,
+                           help='prediction batch size')
+        group.add_argument('--dp-eval', dest='predictor_data_parallel',
+                           default=False, action='store_true',
+                           help='data-parallel eval over several cards: not '
+                                'ported, refused')
+        group.add_argument('--multi-scale', dest='predictor_multi_scale',
+                           default=cls.multi_scale, action='store_true',
+                           help='predict at multiple scales and merge')
+        group.add_argument('--no-multi-scale-hflip',
+                           dest='predictor_multi_scale_hflip',
+                           default=cls.multi_scale_hflip,
+                           action='store_false',
+                           help='skip the hflipped variants in --multi-scale')
+        group.add_argument('--multi-scale-factors', nargs='+', type=float,
+                           dest='predictor_multi_scale_factors',
+                           default=list(cls.multi_scale_factors),
+                           help='long-edge factors for --multi-scale')
+
+    @classmethod
+    def configure(cls, args: argparse.Namespace) -> None:
+        if args.predictor_data_parallel:
+            raise NotImplementedError(
+                '--dp-eval (data-parallel eval over several cards) is not '
+                'ported to the PyTorch predictor')
+        cls.long_edge = args.long_edge
+        cls.batch_size = args.predictor_batch_size
+        cls.multi_scale = args.predictor_multi_scale
+        cls.multi_scale_hflip = args.predictor_multi_scale_hflip
+        cls.multi_scale_factors = tuple(args.predictor_multi_scale_factors)
 
     def _sync(self) -> None:
         if self.device.type == 'cuda':
@@ -84,6 +138,126 @@ class Predictor:
                 preds = [ann.json_data() for ann in preds]
             results.append((preds, meta))
         return results
+
+    # ------------------------------------------------------------------
+    def preprocess_factory(self, *, long_edge: Optional[int] = None,
+                           hflip: bool = False) -> transforms.Preprocess:
+        """The eval transforms: annotations normalized, the image mirrored
+        with ``hflip``, rescaled and centre padded to ``long_edge``
+        (default ``self.long_edge``), then normalized to a tensor."""
+        long_edge = long_edge or self.long_edge
+        meta0 = self.model.head_metas[0]
+        keypoints = getattr(meta0, 'keypoints', []) or []
+        steps = [transforms.NormalizeAnnotations(
+            keypoints=keypoints,
+            skeleton=getattr(meta0, 'draw_skeleton', []) or [])]
+        if hflip:
+            steps.append(transforms.HFlip(
+                keypoints, transforms.hflip_map_from_keypoints(keypoints)))
+        steps += [
+            transforms.RescaleAbsolute(long_edge),
+            transforms.CenterPad(long_edge),
+            transforms.EVAL_TRANSFORM,
+        ]
+        return transforms.Compose(steps)
+
+    def dataset(self, data, *, json_data: Optional[bool] = None
+                ) -> Iterator[Tuple[List, List, dict]]:
+        """Iterate (pred, gt_anns, meta) over a dataset or a loader of
+        eval batches."""
+        loader = data
+        if not isinstance(data, DataLoader):
+            loader = DataLoader(
+                data, batch_size=self.batch_size, shuffle=False,
+                collate_fn=datasets.collate_images_anns_meta,
+                num_workers=self.loader_workers or 0, drop_last=False)
+        yield from self.dataset_loader(loader, json_data=json_data)
+
+    def dataset_loader(self, loader, *, json_data: Optional[bool] = None
+                       ) -> Iterator[Tuple[List, List, dict]]:
+        """Iterate (pred, gt_anns, meta) over eval batches ``(images (B, 3,
+        H, W), anns, metas)``: each batch moves to ``self.device``, runs
+        the model and the batched decode; predictions and ground truth are
+        mapped back to the original image coordinates.  The card is
+        synchronized before every clock read, so ``total_nn_time`` and
+        ``total_decoder_time`` hold the work, not its launches."""
+        if json_data is None:
+            json_data = self.json_data
+        for images, gt_batch, meta_batch in loader:
+            self._sync()
+            start = time.perf_counter()
+            fields = self.model(images.to(self.device))
+            self._sync()
+            self.last_nn_time = time.perf_counter() - start
+            self.total_nn_time += self.last_nn_time
+
+            start = time.perf_counter()
+            if decoder_mod.Decoder.profile:
+                profile = cProfile.Profile()
+                pred_batch = profile.runcall(
+                    self.decoder.batch_fields, fields, metas=meta_batch)
+                profile.dump_stats(decoder_mod.Decoder.profile)
+            else:
+                pred_batch = self.decoder.batch_fields(fields,
+                                                       metas=meta_batch)
+            self._sync()
+            self.last_decoder_time = time.perf_counter() - start
+            self.total_decoder_time += self.last_decoder_time
+            self.total_images += len(meta_batch)
+
+            for preds, gts, meta in zip(pred_batch, gt_batch, meta_batch):
+                preds = [ann.inverse_transform(meta) for ann in preds]
+                gts = [ann.inverse_transform(meta) for ann in gts]
+                if json_data:
+                    preds = [ann.json_data() for ann in preds]
+                yield preds, gts, meta
+
+    # -- multi-scale ----------------------------------------------------
+    @staticmethod
+    def merge_annotations(annotation_lists, *, sigmas=None,
+                          oks_threshold: float = 0.7,
+                          reference_index: int = 0):
+        """Merge per-scale annotation sets (already in original image
+        coordinates): greedy score-ordered OKS suppression.  The sort is
+        Python's stable sort over the variants in their order, so ties
+        keep the earlier variant's pose."""
+        # OKS merging is keypoint-only; box-only annotations pass through
+        # from the reference variant unmerged
+        passthrough = [a for a in (annotation_lists[reference_index]
+                                   if annotation_lists else [])
+                       if getattr(a, 'data', None) is None]
+        annotation_lists = [[a for a in anns
+                             if getattr(a, 'data', None) is not None]
+                            for anns in annotation_lists]
+
+        merged = []
+        candidates = sorted((a for anns in annotation_lists for a in anns),
+                            key=lambda a: -a.score)
+        for ann in candidates:
+            if sigmas is None:
+                sig = np.full(ann.data.shape[0], 0.05, np.float32)
+            else:
+                sig = np.asarray(sigmas, np.float32)
+            if any(oks_matrix(kept.data[None], ann.data[None], sig)[0, 0]
+                   > oks_threshold for kept in merged):
+                continue
+            merged.append(ann)
+        return merged + passthrough
+
+    def multiscale_variants(self, base_long_edge: Optional[int] = None):
+        """(variant (long_edge, hflip) keys, reference variant index).
+
+        Long edges are rounded to the stride grid (16 k + 1); the reference
+        variant — meta, ground truth and box passthrough come from it — is
+        the largest non-flipped scale."""
+        base = base_long_edge or self.long_edge
+        long_edges = sorted({
+            max(2, int(round(base * f / 16))) * 16 + 1
+            for f in self.multi_scale_factors})
+        hflips = (False, True) if self.multi_scale_hflip else (False,)
+        variant_keys = [(long_edge, hflip) for long_edge in long_edges
+                        for hflip in hflips]
+        return variant_keys, variant_keys.index((max(long_edges), False))
 
     def numpy_images(self, images) -> Iterator[Tuple[List, List, dict]]:
         """Yields ``(predictions, ground_truth=[], meta)`` per image, as

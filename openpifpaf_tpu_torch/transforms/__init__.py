@@ -14,19 +14,21 @@ from .base import Preprocess
 from .crop import Crop
 from .eval import (IMAGENET_MEAN, IMAGENET_STD, PAD_FILL, center_pad,
                    init_meta, normalize, preprocess, rescale_absolute, resize)
-from .hflip import HFlip, HorizontalSwap
+from .hflip import HFlip, HorizontalSwap, hflip_map_from_keypoints
 from .image import ImageToTensor
 from .pad import CenterPad
 from .random import RandomApply
 from .scale import RescaleAbsolute, RescaleRelative
 
-# the tensor boundary of the training loaders
+# the tensor boundary of the eval and training loaders
+EVAL_TRANSFORM = ImageToTensor()
 TRAIN_TRANSFORM = ImageToTensor()
 
 __all__ = [
-    'NormalizeAnnotations', 'Compose', 'Crop', 'IMAGENET_MEAN',
-    'IMAGENET_STD', 'PAD_FILL', 'center_pad', 'init_meta', 'normalize',
-    'preprocess', 'rescale_absolute', 'resize', 'HFlip',
-    'HorizontalSwap', 'ImageToTensor', 'CenterPad', 'Preprocess',
-    'RandomApply', 'RescaleAbsolute', 'RescaleRelative', 'TRAIN_TRANSFORM',
+    'NormalizeAnnotations', 'Compose', 'Crop', 'EVAL_TRANSFORM',
+    'IMAGENET_MEAN', 'IMAGENET_STD', 'PAD_FILL', 'center_pad', 'init_meta',
+    'normalize', 'preprocess', 'rescale_absolute', 'resize', 'HFlip',
+    'HorizontalSwap', 'hflip_map_from_keypoints', 'ImageToTensor',
+    'CenterPad', 'Preprocess', 'RandomApply', 'RescaleAbsolute',
+    'RescaleRelative', 'TRAIN_TRANSFORM',
 ]

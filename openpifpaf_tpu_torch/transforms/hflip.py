@@ -1,6 +1,8 @@
 """Horizontal flip with keypoint-name swapping.
 
-Port of ``openpifpaf_tpu/transforms/hflip.py`` on (3, H, W) tensors.
+Port of ``openpifpaf_tpu/transforms/hflip.py`` on (3, H, W) tensors, with
+``hflip_map_from_keypoints`` (the swap table multi-scale eval derives from
+the head's keypoint names).
 """
 
 from __future__ import annotations
@@ -22,6 +24,31 @@ class HorizontalSwap:
 
     def __call__(self, data: np.ndarray) -> np.ndarray:
         return data[self.perm]
+
+
+def hflip_map_from_keypoints(keypoints):
+    """Derive a left/right swap table from keypoint names.
+
+    Covers the naming conventions of the built-in plugins
+    (``left_*``/``right_*``, ``*_left``/``*_right``, ``l_*``/``r_*``);
+    names without a counterpart map to themselves (stay unswapped).
+    """
+    def swapped_name(name: str):
+        for a, b in (('left', 'right'), ('Left', 'Right'), ('L_', 'R_'),
+                     ('l_', 'r_')):
+            if a in name:
+                return name.replace(a, b)
+            if b in name:
+                return name.replace(b, a)
+        return None
+
+    table = {}
+    names = set(keypoints)
+    for name in keypoints:
+        other = swapped_name(name)
+        if other is not None and other in names:
+            table[name] = other
+    return table
 
 
 class HFlip(Preprocess):

@@ -49,7 +49,10 @@ def test_port_sources_found():
     assert os.path.join(REPO, 'chip_smoke.py') in files
     for name in ('train.py', 'training/trainer.py', 'losses/composite.py',
                  'encoder/cif.py', 'transforms/scale.py',
-                 'plugins/toykp/datamodule.py', 'datasets/collate.py'):
+                 'plugins/toykp/datamodule.py', 'datasets/collate.py',
+                 'eval.py', 'metric/__init__.py', 'metric/base.py',
+                 'metric/coco.py', 'metric/cocoeval.py',
+                 'decoder/pose_similarity.py'):
         assert os.path.join(REPO, 'openpifpaf_tpu_torch', name) in files
     assert len(files) > 20
 
@@ -70,7 +73,8 @@ def test_import_loads_no_jax_and_builds_nothing():
         'def refuse(*a, **kw): raise AssertionError(f"subprocess at import: {a}")\n'
         'subprocess.run = subprocess.Popen = refuse\n'
         'import sys, openpifpaf_tpu_torch.predictor, openpifpaf_tpu_torch.ops, '
-        'openpifpaf_tpu_torch.train, openpifpaf_tpu_torch.kernels as k\n'
+        'openpifpaf_tpu_torch.train, openpifpaf_tpu_torch.eval, '
+        'openpifpaf_tpu_torch.metric, openpifpaf_tpu_torch.kernels as k\n'
         f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]\n'
         'assert not bad, bad\n'
         'assert not k._LIBS\n')
