@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's predict, train and eval paths on an NVIDIA card.
+"""Drive the PyTorch port's predict, train and eval paths on an NVIDIA card,
+with the dense-connection and 133-keypoint WholeBody configurations.
 
 Usage (from the repository root, one CUDA card):
 
@@ -66,8 +67,33 @@ Phases, in order; any failure raises and exits non-zero:
    multi-scale variant held to the port's CPU decode of the same fields;
    then K1 and K2 held to their plain versions and timed on the 289 and
    481 px variants' inputs;
-10. a ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
-   serve phase, ``eval_launches`` from the multi-scale eval), the card's
+10. dense: sn2k16 with toykp's CIF (17x5), CAF (19x9) and caf25 (18x9)
+   heads, bias-shifted, bf16, decoded with ``--dense-connections 1.0`` over
+   the 37 concatenated edges: 3 chained batches of 8 at 641 px (K1 once and
+   K2 three times per batch, counts set to 0 before and read after), the
+   first batch's decode held to the CPU decode (``hold_at_budget``), the
+   painted dense scenes, at three jitter draws, held with
+   ``hold_card_to_cpu``; then the train CLI
+   on ``toykp --toykp-with-dense`` (one epoch of 16 images at 385 px) and
+   the eval CLI on its checkpoint with ``--dense-connections``;
+11. wholebody: sn2k30 with ToyWb's 133-keypoint CIF (133x5) and CAF
+   (129x9) heads, bias-shifted, bf16, at WHOLEBODY_BENCH.json's budgets
+   (1024 seeds, 256 CAF candidates, 96 poses), with 1 and 2 placements per
+   growth round: 3 chained batches of 8 at 641 px each (K1 and K2
+   counted), per-image ms, host syncs per batch and peak memory, each
+   run's first batch held to the CPU at the same m (the front end stage by
+   stage, the CPU back end on the card's front end by ``hold_at_budget``:
+   ``hold_wholebody_batch``), painted WholeBody
+   scenes, at three jitter draws, held with ``hold_card_to_cpu``; K1 at
+   F = 133 and K2 at sn2k30's three
+   chains (C = 256, 512, 1024) held to their plain versions and timed on the
+   inputs the main path handed them; then the train CLI on ``toywb``
+   (sn2k16, one epoch of 16 images at 321 px) and the eval CLI on its
+   checkpoint;
+12. a ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
+   serve phase, ``eval_launches`` from the multi-scale eval,
+   ``dense_launches`` and ``wholebody_launches`` from those phases' runs,
+   ``wholebody`` its hold and times at the WholeBody shapes), the card's
    name and power limit, then the last line ``{"ok": true, "device":
    {...}}``.
 
@@ -685,14 +711,16 @@ def poses_missed(a, b, tol: float = 1e-3):
     ``b`` within ``tol`` in every xyv value."""
     missed = []
     for i in range(a[3].shape[0]):
-        xyv_b = b[0][i][b[3][i]].reshape(int(b[3][i].sum()), -1)
+        xyv_b = b[0][i][b[3][i]]
+        xyv_b = xyv_b.reshape(len(xyv_b), int(np.prod(xyv_b.shape[1:])))
         missed.append(sum(
             not (np.abs(xyv_b - pose.reshape(-1)).max(1) <= tol).any()
             for pose in a[0][i][a[3][i]]))
     return missed
 
 
-def hold_at_budget(port, decoder, on_card, fields_cuda, label) -> None:
+def hold_at_budget(port, decoder, on_card, fields_cuda, label,
+                   cpu_np=None) -> None:
     """The card's decode of fields where every cell is a detection (the
     bias-shifted heads), at the seed and pose budgets, against the port's
     CPU decode of the same fields.  There near-ties decide: a seed on the
@@ -704,9 +732,11 @@ def hold_at_budget(port, decoder, on_card, fields_cuda, label) -> None:
     counter within one), and every card pose but at most one per image
     within 1e-3 of a CPU pose in every xyv value.  Printed: the poses
     matched one to one (max |Δxyv|, |Δscore|) and the poses without a CPU
-    pose within 1e-3."""
+    pose within 1e-3.  ``cpu_np``: the CPU decode to hold against (default
+    ``cpu_decode`` of ``fields_cuda``)."""
     card_np = [t.cpu().numpy() for t in on_card]
-    cpu_np = cpu_decode(port, decoder, fields_cuda)
+    if cpu_np is None:
+        cpu_np = cpu_decode(port, decoder, fields_cuda)
     same_count, dxyv, dscore = pose_difference(card_np, cpu_np)
     agree = same_counters(card_np, cpu_np)
     missed = poses_missed(card_np, cpu_np)
@@ -725,6 +755,19 @@ def hold_at_budget(port, decoder, on_card, fields_cuda, label) -> None:
 
 
 # ------------------------------------------------------------------ serve
+def shift_head_biases(model, metas) -> None:
+    """Seeded random weights give fields without detections (confidence
+    ~0.5, scale ~0.7 cells), and the decode would stop after the seeds.
+    Shifting the heads' confidence and scale biases makes every cell a
+    detection, so seeds, CAF scoring, growth and NMS all run at their
+    budgets: the heaviest decode the path has."""
+    with torch.no_grad():
+        for head, meta in zip(model.module.head_nets, metas):
+            bias = head.conv.bias.view(meta.n_fields, meta.n_components)
+            bias[:, 0] = 2.0
+            bias[:, meta.n_components - meta.n_scales:] = 3.0
+
+
 def serve(port, card: str) -> dict:
     from openpifpaf_tpu_torch.predictor import Predictor
 
@@ -734,16 +777,7 @@ def serve(port, card: str) -> dict:
                           device='cuda', bf16=True, seed=0)
     predictor.batch_size = 8
     torch.cuda.reset_peak_memory_stats()
-    # Seeded random weights give fields without detections (confidence
-    # ~0.5, scale ~0.7 cells), and the decode would stop after the seeds.
-    # Shifting the heads' confidence and scale biases makes every cell a
-    # detection, so seeds, CAF scoring, growth and NMS all run at their
-    # budgets: the heaviest decode the path has.
-    with torch.no_grad():
-        for head, meta in zip(predictor.model.module.head_nets, metas):
-            bias = head.conv.bias.view(meta.n_fields, meta.n_components)
-            bias[:, 0] = 2.0
-            bias[:, meta.n_components - meta.n_scales:] = 3.0
+    shift_head_biases(predictor.model, metas)
     rng = np.random.default_rng(1)
     batches = [[rng.integers(0, 256, (641, 641, 3), dtype=np.uint8)
                 for _ in range(8)] for _ in range(3)]
@@ -1262,11 +1296,7 @@ def detecting_predictor(port, device='cuda'):
     metas = port.toykp.coco_head_metas()
     predictor = Predictor(base_name='shufflenetv2k16', head_metas=metas,
                           device=device, bf16=True, seed=0)
-    with torch.no_grad():
-        for head, meta in zip(predictor.model.module.head_nets, metas):
-            bias = head.conv.bias.view(meta.n_fields, meta.n_components)
-            bias[:, 0] = 2.0
-            bias[:, meta.n_components - meta.n_scales:] = 3.0
+    shift_head_biases(predictor.model, metas)
     return predictor
 
 
@@ -1447,6 +1477,627 @@ def eval_phase(port, card, checkpoint: str) -> dict:
     return dict(runs=runs, checks=checks)
 
 
+# ------------------------------------------------------ dense, wholebody
+# Both phases serve batches of 8 random 641 px images through Predictor,
+# heads bias-shifted (``shift_head_biases``), bf16, 3 chained batches.
+# dense: toykp's CIF, CAF and caf25 heads on sn2k16, decoded with
+# --dense-connections over the 19 + 18 edges.  wholebody: ToyWb's
+# 133-keypoint CIF and 129-edge CAF heads on sn2k30 (the backbone of the
+# reference's published WholeBody model) at WHOLEBODY_BENCH.json's budgets,
+# with one and two placements per growth round.
+SERVE_EDGE = 641
+SERVE_BATCH = 8
+SERVE_BATCHES = 3
+DENSE_CONNECTIONS = 1.0
+WB_BASENET = 'shufflenetv2k30'
+WB_BUDGETS = dict(max_seeds=1024, max_caf_candidates=256, max_poses=96)
+WB_PLACEMENTS = (1, 2)
+# the painted scenes' jitter draws (``painted_scenes``)
+JITTER_SEEDS = (7, 8, 9)
+# sn2k30's stride-1 chains: (stage, blocks, side at 641 px, half-width C)
+SN2K30_CHAINS = ((2, 7, 161, 256), (3, 15, 81, 512), (4, 5, 41, 1024))
+SN2K30_BLOCKS = sum(n for _, n, _, _ in SN2K30_CHAINS)
+# the train and eval CLIs of the two phases: one epoch of 16 images, then
+# the data module's 8 eval images
+CLI_IMAGES = 16
+DENSE_CLI_EDGE = TRAIN_EDGE
+WB_CLI_EDGE = 321
+
+
+def stat_ms(xs) -> str:
+    return f'{np.median(xs):.3f} [{min(xs):.3f}, {max(xs):.3f}]'
+
+
+def random_batches(seed: int):
+    rng = np.random.default_rng(seed)
+    return [[rng.integers(0, 256, (SERVE_EDGE, SERVE_EDGE, 3),
+                          dtype=np.uint8) for _ in range(SERVE_BATCH)]
+            for _ in range(SERVE_BATCHES)]
+
+
+def shifted_predictor(port, basenet: str, metas):
+    """``basenet`` at full width with ``metas``' heads on the card, seeded
+    weights, bf16, the heads' biases shifted (``shift_head_biases``)."""
+    from openpifpaf_tpu_torch.predictor import Predictor
+
+    torch.backends.cudnn.benchmark = True
+    predictor = Predictor(base_name=basenet, head_metas=metas, device='cuda',
+                          bf16=True, seed=0)
+    predictor.batch_size = SERVE_BATCH
+    predictor.long_edge = SERVE_EDGE
+    shift_head_biases(predictor.model, metas)
+    return predictor
+
+
+def served_run(port, predictor, batches, label: str,
+               capture: bool = False) -> dict:
+    """A phase's main path: one warm-up batch (with ``capture``, the inputs
+    it hands K1 and K2 are kept), then the counts set to 0, ``batches``
+    served one after the other, the counts read.  Keeps the first batch's
+    fields and decode, and per image the end-to-end, forward and decode ms
+    of every batch (each ``batch()`` waits for its decode)."""
+    captured, chains = [], []
+    launch, launch_chain = (port.cif_hr.cif_hr_accumulate,
+                            port.pair_chain.pair_chain)
+
+    def spy(*args, **kwargs):
+        captured.append(([a.clone() for a in args], dict(kwargs)))
+        return launch(*args, **kwargs)
+
+    def spy_chain(a, b, chain):
+        chains.append((a.clone(), b.clone(), chain))
+        return launch_chain(a, b, chain)
+
+    if capture:
+        port.cif_hr.cif_hr_accumulate = spy
+        port.pair_chain.pair_chain = spy_chain
+    try:
+        predictor.batch(batches[0])
+    finally:
+        port.cif_hr.cif_hr_accumulate = launch
+        port.pair_chain.pair_chain = launch_chain
+
+    decoded = []
+    batch_decoded = predictor.decoder.batch_decoded
+
+    def keep(fields):
+        out = batch_decoded(fields)
+        decoded.append((fields, out))
+        return out
+
+    e2e, fwd, dec, n_anns = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(port)
+    for i, images in enumerate(batches):
+        predictor.decoder.batch_decoded = keep if i == 0 else batch_decoded
+        start = time.perf_counter()
+        results = predictor.batch(images)
+        e2e.append((time.perf_counter() - start) * 1e3 / len(images))
+        fwd.append(predictor.last_nn_time * 1e3 / len(images))
+        dec.append(predictor.last_decoder_time * 1e3 / len(images))
+        n_anns += [len(preds) for preds, _ in results]
+        if not all(np.isfinite(ann.data).all()
+                   for preds, _ in results for ann in preds):
+            raise AssertionError(f'{label}: non-finite annotation')
+    del predictor.decoder.batch_decoded
+    counts = dict(k1=port.cif_hr.KERNEL_LAUNCHES,
+                  k1_cuda=port.cif_hr.CUDA_LAUNCHES,
+                  k2=port.pair_chain.KERNEL_LAUNCHES,
+                  k2_cuda=port.pair_chain.CUDA_LAUNCHES,
+                  syncs=port.common.HOST_SYNCS,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f'{label}: {len(batches)} batches of {SERVE_BATCH} at '
+          f'{SERVE_EDGE}x{SERVE_EDGE}, annotations per image {n_anns}; '
+          f'cif_hr calls {counts["k1"]} ({counts["k1_cuda"]} CUDA kernels), '
+          f'pair_chain calls {counts["k2"]} ({counts["k2_cuda"]} CUDA '
+          f'kernels), host syncs {counts["syncs"]} '
+          f'({counts["syncs"] / len(batches):.1f} per batch); per-image ms, '
+          f'median [min, max] of the {len(batches)} chained batches: end to '
+          f'end {stat_ms(e2e)}, forward {stat_ms(fwd)}, decode '
+          f'{stat_ms(dec)}; peak device memory {counts["peak_gib"]:.2f} GiB',
+          flush=True)
+    return dict(counts=counts, captured=captured, chains=chains,
+                decoded=decoded[0], e2e=e2e)
+
+
+def check_field_shapes(fields, label: str, heads) -> None:
+    """Finite fields of (batch, fields, components, side, side) per head."""
+    side = (SERVE_EDGE - 1) // 16 + 1
+    shapes = [tuple(f.shape) for f in fields]
+    if shapes != [(SERVE_BATCH, n, c, side, side) for n, c in heads]:
+        raise AssertionError(f'{label} field shapes {shapes}')
+    if not all(bool(torch.isfinite(f).all()) for f in fields):
+        raise AssertionError(f'{label}: non-finite fields')
+
+
+def check_launches(run, label: str, chains, n_blocks) -> None:
+    """Every served batch ran K1 once (2 CUDA kernels) and K2 once per
+    stride-1 chain (2 CUDA kernels per block)."""
+    c, n = run['counts'], SERVE_BATCHES
+    want = dict(k1=n, k1_cuda=2 * n, k2=n * len(chains),
+                k2_cuda=n * KERNELS_PER_BLOCK * n_blocks)
+    got = {k: c[k] for k in want}
+    if got != want:
+        raise AssertionError(f'{label}: kernel counts {got}, want {want}')
+
+
+def inv_sigmoid(p):
+    p = np.clip(p, 1e-6, 1 - 1e-6)
+    return np.log(p / (1 - p))
+
+
+def inv_softplus(s):
+    return np.log(np.expm1(np.maximum(s, 1e-6)))
+
+
+def paint_cif(field, kp, scales, stride):
+    """Raw CIF (K, 5, H, W): a 4x4 neighbourhood per visible keypoint (the
+    painter of ``tests/test_decoder.py``)."""
+    _, _, h, w = field.shape
+    for f, (x, y, v) in enumerate(kp):
+        if v <= 0:
+            continue
+        cx, cy = x / stride, y / stride
+        i0, j0 = int(np.floor(cx)) - 1, int(np.floor(cy)) - 1
+        for j in range(max(j0, 0), min(j0 + 4, h)):
+            for i in range(max(i0, 0), min(i0 + 4, w)):
+                conf = 1.0 if max(abs(cx - i), abs(cy - j)) < 1.5 else 0.4
+                field[f, :, j, i] = (inv_sigmoid(conf), cx - i, cy - j,
+                                     inv_softplus(0.5),
+                                     inv_softplus(scales[f] / stride))
+
+
+def paint_caf(field, kp, scales, skeleton, stride):
+    """Raw CAF (E, 9, H, W): the cells along each edge's segment."""
+    _, _, h, w = field.shape
+    for e, (a1, a2) in enumerate(skeleton):
+        (x1, y1, v1), (x2, y2, v2) = kp[a1 - 1], kp[a2 - 1]
+        if v1 <= 0 or v2 <= 0:
+            continue
+        c1 = np.array([x1, y1]) / stride
+        c2 = np.array([x2, y2]) / stride
+        for t in np.linspace(0.0, 1.0, max(
+                2, int(np.ceil(np.linalg.norm(c2 - c1))) + 1)):
+            i, j = (int(round(c)) for c in c1 + t * (c2 - c1))
+            if 0 <= i < w and 0 <= j < h:
+                field[e, :, j, i] = (
+                    inv_sigmoid(1.0), c1[0] - i, c1[1] - j, c2[0] - i,
+                    c2[1] - j, inv_softplus(0.5), inv_softplus(0.5),
+                    inv_softplus(scales[a1 - 1] / stride),
+                    inv_softplus(scales[a2 - 1] / stride))
+
+
+def painted_person(pose, sigmas, dx=0.0, dy=0.0, scale=30.0):
+    """An upright ``pose`` (K, 3) in px, as ``tests/test_decoder.py``'s
+    ``synthetic_pose`` places it, and its joint scales."""
+    pose = np.asarray(pose, np.float32)
+    kp = np.zeros((len(pose), 3), np.float32)
+    kp[:, 0] = pose[:, 0] * scale + 160.0 + dx
+    kp[:, 1] = (10.0 - pose[:, 1]) * scale + 10.0 + dy
+    kp[:, 2] = 2.0
+    return kp, np.maximum(4.0, np.asarray(sigmas, np.float32) * scale * 4)
+
+
+def painted_scenes(scenes, n_keypoints, skeletons, side, stride=16,
+                   seed=JITTER_SEEDS[0], jitter=0.05):
+    """Raw fields of ``scenes`` (lists of ``painted_person``) on a ``side``
+    x ``side`` cell grid: the CIF batch, then a CAF batch per skeleton.
+
+    Every painted value is jittered (N(0, ``jitter``) on confidence logits
+    and the other components, from the numpy ``seed``), as a trained
+    head's fields vary.  Exactly painted fields tie: the cells of an edge
+    give candidates of one score, and which of them a decode takes is
+    decided by the last ulp of the CifHr sums, so one part in 1e7 on the
+    CifHr map moves joint scores by 1e-2 and more in the port's own CPU
+    decode (``tests/test_torch_port_dense.py`` shows it).  The card's K1
+    and the CPU's plain splat sum in other orders."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for skeleton in (None,) + tuple(skeletons):
+        n = n_keypoints if skeleton is None else len(skeleton)
+        fields = np.zeros((len(scenes), n, 5 if skeleton is None else 9,
+                           side, side), np.float32)
+        fields[:, :, 0] = -10.0
+        for field, people in zip(fields, scenes):
+            for kp, scales in people:
+                if skeleton is None:
+                    paint_cif(field, kp, scales, stride)
+                else:
+                    paint_caf(field, kp, scales, skeleton, stride)
+        painted = np.broadcast_to(fields[:, :, :1] > -5.0, fields.shape)
+        fields += np.where(painted, rng.normal(0.0, jitter, fields.shape),
+                           0.0).astype(np.float32)
+        out.append(fields)
+    return out
+
+
+def painted_dense_scenes(constants, **jitter):
+    """A person, two people and a 3x3 crowd on a 21 x 21 cell grid (336
+    px), painted on the sparse and the dense skeleton, as
+    ``tests/test_torch_port_dense.py`` paints them: (cif, caf, dense);
+    ``jitter``: ``painted_scenes``' seed and jitter."""
+    def person(dx=0.0, dy=0.0, scale=30.0):
+        return painted_person(constants.COCO_UPRIGHT_POSE,
+                              constants.COCO_PERSON_SIGMAS, dx, dy, scale)
+
+    scenes = [[person()], [person(-70.0), person(75.0, 10.0)],
+              [person(dx, dy, 8.0) for dy in (0.0, 110.0, 220.0)
+               for dx in (-110.0, 0.0, 110.0)]]
+    return painted_scenes(scenes, 17, (
+        constants.COCO_PERSON_SKELETON,
+        constants.DENSER_COCO_PERSON_CONNECTIONS), side=21, **jitter)
+
+
+def painted_wholebody_scenes(wb, **jitter):
+    """One and three WholeBody people (the upright pose of
+    ``plugins/wholebody/constants.py``, 40 px per pose unit) on the served
+    grid: (cif, caf); ``jitter``: ``painted_scenes``' seed and jitter."""
+    def person(dx, scale=40.0):
+        return painted_person(wb.UPRIGHT_POSE, wb.SIGMAS, dx, 100.0, scale)
+
+    side = (SERVE_EDGE - 1) // 16 + 1
+    scenes = [[person(160.0)], [person(-30.0), person(160.0), person(350.0)]]
+    return painted_scenes(scenes, len(wb.KEYPOINTS), (wb.SKELETON,), side,
+                          **jitter)
+
+
+def cli_train_eval(label: str, train_args, eval_args, out: str, heads):
+    """``python -m openpifpaf_tpu_torch.train`` on the card for one epoch
+    of ``CLI_IMAGES`` images, then ``python -m openpifpaf_tpu_torch.eval``
+    on its checkpoint: exit 0, the checkpoint's heads, the stats json's
+    keys and the data module's 8 eval images."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    start = time.perf_counter()
+    result = subprocess.run(
+        [sys.executable, '-m', 'openpifpaf_tpu_torch.train', '--epochs=1',
+         f'--batch-size={TRAIN_BATCH}', '--output', out] + train_args,
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    if result.returncode != 0:
+        raise AssertionError(f'{label} train CLI failed:\n'
+                             f'{result.stderr[-3000:]}')
+    train_s = time.perf_counter() - start
+    from openpifpaf_tpu_torch.models import checkpoint
+
+    names = [m.name for m in checkpoint.load(out + '.npz')[0]['head_metas']]
+    start = time.perf_counter()
+    result = subprocess.run(
+        [sys.executable, '-m', 'openpifpaf_tpu_torch.eval',
+         f'--checkpoint={out}.npz', f'--batch-size={EVAL_BATCH}', '-o',
+         out + '.eval'] + eval_args,
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    if result.returncode != 0:
+        raise AssertionError(f'{label} eval CLI failed:\n'
+                             f'{result.stderr[-3000:]}')
+    with open(out + '.eval.stats.json') as f:
+        stats = json.load(f)
+    print(f'{label} CLIs on the card: train exit 0 in {train_s:.1f} s, '
+          f'checkpoint heads {names}; eval exit 0 in '
+          f'{time.perf_counter() - start:.1f} s, stats '
+          f'{dict(zip(stats["text_labels"], stats["stats"]))}, '
+          f'{stats["n_images"]} images, {stats["images_per_second"]} '
+          f'images/s', flush=True)
+    keys = ['n_images', 'total_time', 'nn_time', 'decoder_time',
+            'images_per_second', 'stats', 'text_labels']
+    if (names != heads or list(stats) != keys or stats['n_images'] != 8
+            or stats['text_labels'][:3] != ['AP', 'AP0.5', 'AP0.75']
+            or not all(-1.0 <= v <= 1.0 for v in stats['stats'])):
+        raise AssertionError(f'{label} CLIs: heads {names}, stats {stats}')
+
+
+def dense_phase(port, card: str, tmp: str) -> dict:
+    """sn2k16 with toykp's three heads, decoded with ``--dense-connections``
+    over the 37 concatenated edges: the served batches (K1 and K2 counted),
+    the first batch's decode held to the CPU decode (``hold_at_budget``),
+    the painted dense scenes at each of ``JITTER_SEEDS`` held with
+    ``hold_card_to_cpu``; then the train
+    CLI on ``toykp --toykp-with-dense`` at 385 px and the eval CLI with
+    ``--dense-connections`` on its checkpoint."""
+    start = time.perf_counter()
+    port.decoder.CifCaf.dense_connections = DENSE_CONNECTIONS
+    try:
+        metas = port.toykp.coco_head_metas() + [port.toykp.dense_head_meta()]
+        predictor = shifted_predictor(port, 'shufflenetv2k16', metas)
+        decoder = predictor.decoder
+        if not decoder.uses_dense or decoder.caf_meta.n_fields != 37:
+            raise AssertionError('the dense decoder does not decode 37 edges')
+        run = served_run(port, predictor, random_batches(5), 'dense served')
+        check_launches(run, 'dense served', SN2K16_CHAINS, SN2K16_BLOCKS)
+        fields, on_card = run['decoded']
+        check_field_shapes(fields, 'dense', ((17, 5), (19, 9), (18, 9)))
+        hold_at_budget(port, decoder, on_card,
+                       [fields[0], decoder.caf_fields(fields)],
+                       'dense served batch')
+
+        for seed in JITTER_SEEDS:
+            painted = [torch.as_tensor(a, device='cuda') for a in
+                       painted_dense_scenes(port.constants, seed=seed)]
+            on_card = decoder.batch_decoded(painted)
+            hold_card_to_cpu(port, decoder, on_card,
+                             [painted[0], decoder.caf_fields(painted)],
+                             f'painted dense scenes, jitter seed {seed}')
+            if on_card.valid.sum(dim=1).tolist() != [1, 2, 9]:
+                raise AssertionError('painted dense scenes: pose counts '
+                                     f'{on_card.valid.sum(dim=1).tolist()}')
+
+        edge = f'--toykp-image-size={DENSE_CLI_EDGE}'
+        cli_train_eval('dense', ['--dataset=toykp', '--toykp-with-dense',
+                                 '--basenet=shufflenetv2k16', edge,
+                                 f'--toykp-n-images={CLI_IMAGES}'],
+                       ['--dataset=toykp', '--toykp-with-dense', edge,
+                        f'--dense-connections={DENSE_CONNECTIONS}'],
+                       os.path.join(tmp, 'dense'), ['cif', 'caf', 'caf25'])
+    finally:
+        port.decoder.CifCaf.dense_connections = 0.0
+    print(f'dense phase: {time.perf_counter() - start:.1f} s ({card})',
+          flush=True)
+    return run['counts']
+
+
+FRONT_TOL = 1e-6   # relative: |d| <= 1e-6 * max(1, |value|), ~8 f32 ulps
+FRONT_STAGES = (('cif_hr', 'accumulate'), ('seeds', 'select'),
+                ('caf_scored', 'score'))
+
+
+def front_end_stages(pipeline, fields, kw):
+    """``pipeline.decode_front_end`` of ``fields`` with its stages recorded
+    in call order: K1's ``cif_hr.accumulate``, ``seeds.select`` and
+    ``caf_scored.score``, each as (name, args, kwargs, output)."""
+    stages, saved = [], []
+
+    def recorded(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            stages.append((name, args, kwargs, out))
+            return out
+        return call
+
+    try:
+        for module, name in FRONT_STAGES:
+            fn = getattr(getattr(pipeline, module), name)
+            saved.append((getattr(pipeline, module), name, fn))
+            setattr(getattr(pipeline, module), name,
+                    recorded(f'{module}.{name}', fn))
+        front = pipeline.decode_front_end(*fields, **kw)
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+    return front, stages
+
+
+def tensors_of(obj):
+    """The tensors of ``obj`` (nested tuples, lists and dicts), in order."""
+    if torch.is_tensor(obj):
+        return [obj]
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (tuple, list)):
+        return [t for o in obj for t in tensors_of(o)]
+    return []
+
+
+def to_cpu_obj(obj):
+    """``obj`` (nested tuples, named tuples, lists and dicts) on the CPU."""
+    if torch.is_tensor(obj):
+        return obj.cpu()
+    if isinstance(obj, dict):
+        return {k: to_cpu_obj(v) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, '_fields'):
+        return type(obj)(*[to_cpu_obj(o) for o in obj])
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(to_cpu_obj(o) for o in obj)
+    return obj
+
+
+def worst_difference(a, b, label: str) -> float:
+    """Tensors ``a`` and ``b`` (same shapes; integers and flags equal):
+    max |a - b| / max(1, |b|) over the float ones."""
+    worst = 0.0
+    for x, y in zip(tensors_of(a), tensors_of(b), strict=True):
+        x = x.cpu()
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f'{label}: {x.shape} {x.dtype} against '
+                                 f'{y.shape} {y.dtype}')
+        if not x.is_floating_point():
+            if not torch.equal(x, y):
+                raise AssertionError(f'{label}: {int((x != y).sum())} '
+                                     f'integer or flag values differ')
+            continue
+        if x.numel():
+            worst = max(worst, float(((x.double() - y.double()).abs()
+                                      / y.double().abs().clamp(min=1.0))
+                                     .max()))
+    return worst
+
+
+def hold_front_ends(pipeline, fields_cuda, kw, label: str):
+    """The card's decode front end against the CPU's, stage by stage, and
+    returns the card's on the CPU.
+
+    A stage's selection (3x3 local maxima, a stable sort to the seed and
+    candidate budgets) turns one ulp between near-equal values into
+    another choice, and ``sigmoid``, ``softplus`` and ``exp`` round apart
+    on the two devices.  So each stage is held in two ways: its inputs on
+    the card against its inputs on the CPU, every element (the CifHr map
+    within K1's 2e-5, the rest within ``FRONT_TOL``); and its output on the
+    card against the CPU's stage run on the card's inputs, every element in
+    order (within ``FRONT_TOL``; integers and flags equal): seeds (v, f, x,
+    y, s, valid) and candidates (score, x/y source and target, scale,
+    valid, overflow).  K1's output, the CifHr map and its overflow count,
+    is held against the CPU's plain splat within K1's 2e-5."""
+    card, card_stages = front_end_stages(pipeline, fields_cuda, kw)
+    _, cpu_stages = front_end_stages(
+        pipeline, [f.cpu() for f in fields_cuda], kw)
+    if [s[0] for s in card_stages] != [s[0] for s in cpu_stages]:
+        raise AssertionError(f'{label}: the front ends ran other stages')
+    functions = {f'{m}.{n}': getattr(getattr(pipeline, m), n)
+                 for m, n in FRONT_STAGES}
+    hr = card_stages[0][3][0]   # K1's map, an input of the later stages
+    report = []
+    for (name, args, kwargs, out), (_, cpu_args, cpu_kwargs, cpu_out) in zip(
+            card_stages, cpu_stages):
+        inputs = [(worst_difference(a, b, f'{label} {name} input'),
+                   2e-5 if a is hr else FRONT_TOL)
+                  for a, b in zip(tensors_of((args, kwargs)),
+                                  tensors_of((cpu_args, cpu_kwargs)),
+                                  strict=True)]
+        if name == 'cif_hr.accumulate':
+            # K1's map against the CPU's plain splat, within K1's limit
+            output = (worst_difference(out, cpu_out, f'{label} {name}'), 2e-5)
+        else:
+            output = (worst_difference(out, functions[name](
+                *to_cpu_obj(args), **to_cpu_obj(kwargs)), f'{label} {name}'),
+                FRONT_TOL)
+        report.append((name, max((d for d, _ in inputs), default=0.0),
+                       output[0]))
+        if any(d > limit for d, limit in inputs + [output]):
+            raise AssertionError(f'{label} {name}: card and CPU differ, '
+                                 f'inputs {inputs}, output {output} '
+                                 f'(max |d|, limit)')
+    print(f'{label}, front end card vs CPU, stage by stage (max |d| / '
+          f'max(1, |value|); inputs card vs CPU, outputs card vs the CPU '
+          f'stage on the card\'s inputs, every element in order): ' +
+          ', '.join(f'{n} inputs {i:.3e}, output {o:.3e}'
+                    for n, i, o in report), flush=True)
+    return to_cpu_obj(card)
+
+
+def hold_wholebody_batch(port, decoder, on_card, fields_cuda, label):
+    """The WholeBody served batch against the CPU, in two parts.
+
+    At these budgets the seed ranking is a near-tie: K1 sums the CifHr map
+    in another order than the CPU's plain splat (up to 1.8e-7 apart), the
+    random heads' near-uniform fields put hundreds of seed values within
+    that of each other, and hundreds of the 1024 seeds of an image rank in
+    another order on the card than on the CPU.
+    The two devices then consume seeds in other orders, grow the same poses
+    and leave a seed or two more or fewer unclaimed after the last wave.
+    So (1) the front end is held stage by stage (``hold_front_ends``);
+    (2) the back end (growth, joint scales, NMS) runs on the CPU from the
+    card's front end and is held with ``hold_at_budget``."""
+    pipeline = port.ops.pipeline
+    h, w = fields_cuda[0].shape[-2:]
+    stride = decoder.cif_meta.stride
+    config = decoder.config_for(((h - 1) * stride + 1, (w - 1) * stride + 1))
+    kw = dict(cif_meta=decoder.cif_meta, caf_meta=decoder.caf_meta,
+              config=config)
+    with torch.no_grad():
+        card = hold_front_ends(pipeline, fields_cuda, kw, label)
+        back = pipeline.decode_back_end(card, **kw)
+    hold_at_budget(port, decoder, on_card, fields_cuda,
+                   f'{label} (the CPU back end on the card\'s front end)',
+                   cpu_np=[t.numpy() for t in back])
+
+
+def with_placements(decoder, m: int) -> None:
+    """The decoder's configuration with ``m`` placements per growth round;
+    the CPU decode that ``hold_at_budget`` runs takes the same."""
+    config_for = type(decoder).config_for
+
+    def placed(image_hw):
+        config = config_for(decoder, image_hw)
+        return dataclasses.replace(config, growth=dataclasses.replace(
+            config.growth, placements_per_round=m))
+    decoder.config_for = placed
+    decoder._decoders.clear()  # pylint: disable=protected-access
+
+
+def sum_chains(chains) -> dict:
+    """K2 over a forward's chains: times and bounds summed, bound by
+    operations when most of the bound is."""
+    total = {key: sum(c[key] for c in chains)
+             for key in ('ms', 'plain_ms', 'canonical_ms', 'bound_ms')}
+    by_ops = sum(c['bound_ms'] for c in chains
+                 if c['bound_by'] == 'operations')
+    total['bound_by'] = ('operations' if 2 * by_ops >= total['bound_ms']
+                         else 'bytes')
+    total['max_abs_err'] = max(c['max_abs_err'] for c in chains)
+    return total
+
+
+def wholebody_phase(port, card: str, tmp: str) -> dict:
+    """sn2k30 with ToyWb's 133-keypoint heads at WHOLEBODY_BENCH.json's
+    budgets, with 1 and 2 placements per growth round: the served batches
+    (K1 and K2 counted, host syncs per batch), each run's first batch held
+    to the CPU at the same m (``hold_wholebody_batch``) and painted scenes
+    at each of ``JITTER_SEEDS`` with ``hold_card_to_cpu``; K1 at F = 133 and
+    K2 at sn2k30's three chains held to their plain versions and timed on
+    the inputs the main path handed them; then the train CLI on ``toywb``
+    (sn2k16, 321 px) and the eval CLI on its checkpoint."""
+    start = time.perf_counter()
+    cls = port.decoder.CifCaf
+    old = {key: getattr(cls, key) for key in WB_BUDGETS}
+    try:
+        for key, value in WB_BUDGETS.items():
+            setattr(cls, key, value)
+        metas = port.toykp.ToyWb().head_metas
+        predictor = shifted_predictor(port, WB_BASENET, metas)
+        batches = random_batches(6)
+        runs = {}
+        for m in WB_PLACEMENTS:
+            with_placements(predictor.decoder, m)
+            label = f'wholebody m={m}'
+            runs[m] = run = served_run(port, predictor, batches,
+                                       f'{label} served',
+                                       capture=m == WB_PLACEMENTS[0])
+            check_launches(run, label, SN2K30_CHAINS, SN2K30_BLOCKS)
+            fields, on_card = run['decoded']
+            check_field_shapes(fields, label, ((133, 5), (129, 9)))
+            held = time.perf_counter()
+            hold_wholebody_batch(port, predictor.decoder, on_card, fields,
+                                 f'{label} served batch')
+            print(f'{label}: the CPU decode of the held batch took '
+                  f'{time.perf_counter() - held:.1f} s', flush=True)
+            for seed in JITTER_SEEDS:
+                painted = [torch.as_tensor(a, device='cuda') for a in
+                           painted_wholebody_scenes(port.wb, seed=seed)]
+                on_card = predictor.decoder.batch_decoded(painted)
+                hold_card_to_cpu(port, predictor.decoder, on_card, painted,
+                                 f'{label} painted scenes, jitter seed {seed}')
+                if on_card.valid.sum(dim=1).tolist() != [1, 3]:
+                    raise AssertionError(
+                        f'{label} painted scenes: pose counts '
+                        f'{on_card.valid.sum(dim=1).tolist()}')
+        print(f'wholebody host syncs per batch of {SERVE_BATCH}: ' + ', '.join(
+            f'{runs[m]["counts"]["syncs"] / SERVE_BATCHES:.1f} at m={m}'
+            for m in WB_PLACEMENTS) + f' ({card})', flush=True)
+
+        first = runs[WB_PLACEMENTS[0]]
+        args, kwargs = first['captured'][0]
+        k1 = measure_cif_hr(port.cif_hr, 'wholebody F=133', args, kwargs)
+        k1['shape'] = (f'(B, F, N) {tuple(args[0].shape)} -> '
+                       f'{tuple(kwargs["out_hw"])}')
+        shapes = [tuple(a.shape) for a, _, _ in first['chains']]
+        if shapes != [(SERVE_BATCH, side, side, c)
+                      for _, _, side, c in SN2K30_CHAINS]:
+            raise AssertionError(f'sn2k30 ran K2 on {shapes}')
+        basenet = predictor.model.module.basenet
+        k2 = sum_chains([measure_pair_chain(
+            port.pair_chain, f'sn2k30 stage {stage}', a, b, chain,
+            [getattr(basenet, f'stage{stage}_{i}') for i in range(1, n + 1)])
+            for (a, b, chain), (stage, n, _, _) in zip(first['chains'],
+                                                       SN2K30_CHAINS)])
+        k2['shape'] = ', '.join(f'{tuple(a.shape)} {str(a.dtype)[6:]}'
+                                for a, _, _ in first['chains'])
+        print(f'pair_chain per sn2k30 batch (3 chains): kernel '
+              f'{k2["ms"]:.4f} ms, plain {k2["plain_ms"]:.4f} ms, canonical '
+              f'modules {k2["canonical_ms"]:.4f} ms, bound '
+              f'{k2["bound_ms"]:.4f} ms ({k2["bound_by"]})', flush=True)
+        counts = {m: run['counts'] for m, run in runs.items()}
+        del predictor, first, runs
+    finally:
+        for key, value in old.items():
+            setattr(cls, key, value)
+
+    edge = f'--toywb-image-size={WB_CLI_EDGE}'
+    cli_train_eval('toywb', ['--dataset=toywb', '--basenet=shufflenetv2k16',
+                             edge, f'--toywb-n-images={CLI_IMAGES}'],
+                   ['--dataset=toywb', edge], os.path.join(tmp, 'toywb'),
+                   ['cif', 'caf'])
+    print(f'wholebody phase: {time.perf_counter() - start:.1f} s ({card})',
+          flush=True)
+    return dict(counts=counts, k1=k1, k2=k2)
+
+
 class _Port:
     """The port's modules, imported after the card check."""
 
@@ -1458,6 +2109,7 @@ class _Port:
         from openpifpaf_tpu_torch.ops import cif_hr, common, pair_chain
         from openpifpaf_tpu_torch.plugins import toykp
         from openpifpaf_tpu_torch.plugins.coco import constants
+        from openpifpaf_tpu_torch.plugins.wholebody import constants as wb
         self.decoder, self.headmeta, self.kernels, self.models, self.ops = \
             decoder, headmeta, kernels, models, ops
         self.cif_hr, self.common, self.constants = cif_hr, common, constants
@@ -1465,6 +2117,7 @@ class _Port:
         self.datasets, self.losses, self.training, self.toykp = \
             datasets, losses, training, toykp
         self.eval_mod, self.fused_shufflenet = eval_mod, fused_shufflenet
+        self.wb = wb
 
 
 def main() -> int:
@@ -1536,11 +2189,22 @@ def main() -> int:
         train_phase(port, card, os.path.join(tmp, 'model'))
         phase('eval')
         evaluated = eval_phase(port, card, os.path.join(tmp, 'model.npz'))
-    max_err = max([max_err] + [r['max_abs_err'] for kind, r in
-                               evaluated['checks'] if kind == 'cif_hr'])
-    k2_err = max([k2_err] + [r['max_abs_err'] for kind, r in
-                             evaluated['checks'] if kind == 'pair_chain'])
+        phase('dense')
+        dense = dense_phase(port, card, tmp)
+        phase('wholebody')
+        wholebody = wholebody_phase(port, card, tmp)
+    max_err = max([max_err, wholebody['k1']['max_abs_err']]
+                  + [r['max_abs_err'] for kind, r in evaluated['checks']
+                     if kind == 'cif_hr'])
+    k2_err = max([k2_err, wholebody['k2']['max_abs_err']]
+                 + [r['max_abs_err'] for kind, r in evaluated['checks']
+                    if kind == 'pair_chain'])
     eval_counts = evaluated['runs']['multi-scale force-complete']['counts']
+    wb_counts = wholebody['counts'].values()
+
+    def at_new_shape(r):
+        return {k: r[k] for k in ('shape', 'ms', 'plain_ms', 'bound_ms',
+                                  'bound_by', 'max_abs_err')}
 
     print(json.dumps({'kernels': [{
         'name': 'cif_hr_accumulate', 'route': 'cuda',
@@ -1549,6 +2213,9 @@ def main() -> int:
         'function': 'accumulate_pallas',
         'launches': served['launches'],
         'eval_launches': eval_counts['k1'],
+        'dense_launches': dense['k1'],
+        'wholebody_launches': sum(c['k1'] for c in wb_counts),
+        'wholebody': at_new_shape(wholebody['k1']),
         'max_abs_err': max_err, 'max_abs_diff': max_err,
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
@@ -1559,6 +2226,9 @@ def main() -> int:
         'function': 'pair_chain_pallas',
         'launches': served['chain_launches'],
         'eval_launches': eval_counts['k2'],
+        'dense_launches': dense['k2'],
+        'wholebody_launches': sum(c['k2'] for c in wb_counts),
+        'wholebody': at_new_shape(wholebody['k2']),
         'max_abs_err': k2_err, 'max_abs_diff': k2_err,
         'ms': k2_main['ms'], 'plain_ms': k2_main['plain_ms'],
         'bound_ms': k2_main['bound_ms'], 'bound_by': k2_main['bound_by'],

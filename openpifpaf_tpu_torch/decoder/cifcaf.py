@@ -4,13 +4,17 @@ Port of ``openpifpaf_tpu/decoder/cifcaf.py``.  Reference parity:
 ``src/openpifpaf/decoder/cifcaf.py:~40``.  The class-level thresholds are
 the JAX package's defaults (``cifcaf.py:28-46``) with the same CLI flags
 (``cifcaf.py:66-123``); ``config_for`` builds the same ``CifCafConfig`` as
-``cifcaf.py:153-193``, force-complete included.  Dense connections are not
-ported yet: a dense head with ``--dense-connections`` raises.
+``cifcaf.py:153-193``, force-complete included.  With a dense CAF head and
+``--dense-connections``, the decode runs over the concatenated sparse and
+dense skeletons, the dense edges' confidences scaled by the flag's value
+(``cifcaf.py:49-60, 131-149``); with the flag at 0 the dense head is
+ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 from typing import List, Tuple
 
@@ -48,10 +52,22 @@ class CifCaf(Decoder):
 
     def __init__(self, cif_meta: headmeta.Cif, caf_meta: headmeta.Caf,
                  dense_caf_meta: headmeta.Caf = None, *, device=None):
-        if dense_caf_meta is not None and self.dense_connections:
-            raise NotImplementedError('dense connections are not ported yet')
         self.cif_meta = cif_meta
-        self.caf_meta = caf_meta
+        self.base_caf_meta = caf_meta
+        self.dense_caf_meta = dense_caf_meta
+        # decided once: the flag is a class attribute that a later
+        # configure may change
+        self.uses_dense = dense_caf_meta is not None and bool(
+            self.dense_connections)
+        if self.uses_dense:
+            # decode over the concatenated sparse + dense skeleton, the
+            # dense edges' confidence scaled (reference --dense-connections)
+            dense = dataclasses.replace(dense_caf_meta)
+            dense.decoder_confidence_scales = \
+                [self.dense_connections] * len(dense.skeleton)
+            self.caf_meta = headmeta.Caf.concatenate([caf_meta, dense])
+        else:
+            self.caf_meta = caf_meta
         self.device = resolve_device(device)
         self._decoders = {}  # image_hw -> batched decode
 
@@ -89,8 +105,7 @@ class CifCaf(Decoder):
                            type=float, default=cls.dense_connections,
                            const=1.0,
                            help='use dense skeleton connections at this '
-                                'confidence scale (not ported: refused '
-                                'with a dense head)')
+                                'confidence scale')
         group.add_argument('--decoder-max-poses', default=cls.max_poses,
                            type=int, help='static pose budget per image')
         group.add_argument('--decoder-max-seeds', default=cls.max_seeds,
@@ -131,6 +146,17 @@ class CifCaf(Decoder):
             dense = head_metas[2]
         return [cls(head_metas[0], head_metas[1], dense_caf_meta=dense,
                     device=device)]
+
+    def caf_fields(self, fields):
+        """The CAF fields the decode takes, batched: the sparse head's, with
+        the dense head's concatenated along the edge axis under
+        ``--dense-connections``."""
+        base = fields[self.base_caf_meta.head_index]
+        if not self.uses_dense:
+            return base
+        dense = fields[self.dense_caf_meta.head_index]
+        return torch.cat([torch.as_tensor(base), torch.as_tensor(dense)],
+                         dim=1)
 
     def config_for(self, image_hw: Tuple[int, int]) -> CifCafConfig:
         """The decode configuration; on the card the CifHr profiles are
@@ -202,7 +228,7 @@ class CifCaf(Decoder):
     def batch_decoded(self, fields):
         """Batched decode on the device: ``DecodedPoses`` of tensors."""
         cif_fields = fields[self.cif_meta.head_index]
-        caf_fields = fields[self.caf_meta.head_index]
+        caf_fields = self.caf_fields(fields)
         h, w = cif_fields.shape[-2:]
         stride = self.cif_meta.stride
         image_hw = ((h - 1) * stride + 1, (w - 1) * stride + 1)

@@ -12,8 +12,9 @@ skeletons, visualizers) reads them.
 
 Port copy of ``openpifpaf_tpu/headmeta.py``: the PyTorch package keeps its
 own copy so that it imports nothing of the JAX package.  It holds the
-metas of the ported CifCaf path only (``CifDet``, ``Tcaf`` and
-``Caf.concatenate`` come with their decoders).
+metas of the ported CifCaf path, ``Caf.concatenate`` (the sparse and dense
+skeletons of ``--dense-connections``) included; ``CifDet`` and ``Tcaf``
+come with their decoders.
 """
 
 from __future__ import annotations
@@ -121,3 +122,30 @@ class Caf(Base):
     @property
     def n_fields(self) -> int:
         return len(self.skeleton)
+
+    @staticmethod
+    def concatenate(metas: List['Caf']) -> 'Caf':
+        """Merge several CAF metas into one (the sparse and dense skeletons
+        of ``--dense-connections``).  Reference: ``headmeta.py``
+        ``Caf.concatenate``.  The skeletons are joined in order, the strides
+        and the head index are the first meta's, and a meta without
+        ``decoder_confidence_scales`` contributes 1.0 per edge."""
+        concatenated = Caf(
+            name='_'.join(m.name for m in metas),
+            dataset=metas[0].dataset,
+            keypoints=metas[0].keypoints,
+            sigmas=metas[0].sigmas,
+            pose=metas[0].pose,
+            skeleton=[s for meta in metas for s in meta.skeleton],
+            sparse_skeleton=metas[0].sparse_skeleton,
+            only_in_field_of_view=metas[0].only_in_field_of_view,
+        )
+        concatenated.head_index = metas[0].head_index
+        concatenated.base_stride = metas[0].base_stride
+        concatenated.upsample_stride = metas[0].upsample_stride
+        concatenated.decoder_confidence_scales = [
+            w for meta in metas
+            for w in (meta.decoder_confidence_scales
+                      if meta.decoder_confidence_scales is not None
+                      else [1.0] * len(meta.skeleton))]
+        return concatenated

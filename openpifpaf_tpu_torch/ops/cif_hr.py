@@ -147,8 +147,14 @@ def accumulate_plain(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     inv2s2 = (0.5 / (sigma * sigma))[..., None]
     trunc = (truncate * sigma)[..., None]
     zero = torch.zeros((), device=v.device)
-    gx = torch.where(dx.abs() <= trunc, torch.exp(-dx * dx * inv2s2), zero)
-    gy = torch.where(dy.abs() <= trunc, torch.exp(-dy * dy * inv2s2), zero)
+    # inside the window the exponent is >= -truncate^2 / 2; the floor below
+    # that changes only values the window zeroes, and spares the CPU's exp
+    # its slow path for large negative arguments
+    floor = -0.5 * truncate * truncate - 1.0
+    gx = torch.where(dx.abs() <= trunc, torch.exp(
+        torch.clamp(-dx * dx * inv2s2, min=floor)), zero)
+    gy = torch.where(dy.abs() <= trunc, torch.exp(
+        torch.clamp(-dy * dy * inv2s2, min=floor)), zero)
     gy = gy * v[..., None]
     if profile_bf16:
         gy = gy.bfloat16().float()

@@ -14,11 +14,13 @@ cap.  Ties keep JAX's order: ``argmax`` returns the first maximum and every
 ``argsort`` is stable.  Scatters write index sets without duplicates, or
 spill into a pad column that is never read, as the JAX version does.
 
-In scope: the defaults of ``decoder/cifcaf.py`` and ``force_complete``
-(the relaxed second pass of each wave, ``growth.py:460-497``, on its own
-candidate set); ``placements_per_round > 1`` and ``seed_dedup`` raise
-NotImplementedError.  The second pass is a second host loop, so it adds
-host syncs (``common.HOST_SYNCS``) to every wave.
+Every option of the JAX ``GrowthConfig`` is here: ``force_complete`` (the
+relaxed second pass of each wave, ``growth.py:460-497``, on its own
+candidate set), ``placements_per_round`` (the top-m frontier joints per
+round, ``growth.py:387-451``) and ``seed_dedup`` (``compact_seeds``,
+``growth.py:500-533``); ``init_poses`` is the legacy single-wave
+initialiser, which always dedups.  The second pass is a second host loop,
+so it adds host syncs (``common.HOST_SYNCS``) to every wave.
 """
 
 from __future__ import annotations
@@ -47,19 +49,18 @@ class GrowthConfig:
     reverse_match: bool = True
     connection_blend: bool = True         # --connection-method=blend|max
     max_poses: int = 96
+    seed_dedup_radius: float = 4.0        # px floor for seed suppression
+    seed_dedup_scale: float = 0.5         # radius = max(floor, f * seed scale)
     force_complete: bool = False          # relaxed second pass
     force_complete_threshold: float = 0.001
+    # joints placed per pose per round: 1 is the reference's priority-queue
+    # pop; m > 1 places the top-m frontier joints at once, whose new
+    # out-edges the same round does not see (a scheduling relaxation)
     placements_per_round: int = 1
     max_waves: int = 8
+    # radius dedup of seeds against stronger seeds of the same field before
+    # the waves (off: the oracle's semantics; ``init_poses`` always dedups)
     seed_dedup: bool = False
-
-    def check_supported(self) -> None:
-        for name, bad in (('placements_per_round > 1',
-                           self.placements_per_round > 1),
-                          ('seed_dedup', self.seed_dedup)):
-            if bad:
-                raise NotImplementedError(
-                    f'GrowthConfig.{name} is not ported yet')
 
 
 class DirectedEdges(NamedTuple):
@@ -82,6 +83,82 @@ def directed_edges(skeleton: np.ndarray) -> DirectedEdges:
     src[1::2], tgt[1::2] = skeleton[:, 1], skeleton[:, 0]
     return DirectedEdges(src, tgt, np.repeat(np.arange(e), 2),
                          np.tile(np.array([0, 1]), e))
+
+
+def _seed_keep(seeds: Seeds, config: GrowthConfig) -> torch.Tensor:
+    """(B, S) valid seeds without a stronger valid seed of the same field
+    within the dedup radius ``max(seed_dedup_radius, seed_dedup_scale *
+    s)`` of either seed.  Seeds are sorted descending by value, so seed j
+    is stronger than seed i when j < i."""
+    s = seeds.v.shape[1]
+    r = torch.clamp(config.seed_dedup_scale * seeds.s,
+                    min=config.seed_dedup_radius)
+    dx = seeds.x[:, None, :] - seeds.x[:, :, None]
+    dy = seeds.y[:, None, :] - seeds.y[:, :, None]
+    d2 = dx * dx + dy * dy
+    same_field = seeds.f[:, None, :] == seeds.f[:, :, None]
+    rank = torch.arange(s, device=seeds.v.device)
+    stronger = rank[None, :] < rank[:, None]
+    rr = torch.maximum(r[:, None, :], r[:, :, None])
+    suppressed = (same_field & stronger & (d2 < rr * rr)
+                  & seeds.valid[:, None, :]).any(dim=2)
+    return seeds.valid & ~suppressed
+
+
+def _kept_first(keep: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, S) order that puts the kept seeds first, descending by value
+    (a stable sort, as ``jnp.argsort``)."""
+    return torch.argsort(torch.where(keep, -v, float('inf')), dim=1,
+                         stable=True)
+
+
+def init_poses(seeds: Seeds, *, n_keypoints: int, config: GrowthConfig):
+    """Seed dedup + pose initialization: the legacy single-wave path.
+
+    A seed is dropped when a stronger seed of the same field lies within
+    its dedup radius; the kept seeds fill the ``max_poses`` slots in
+    descending value.  Returns (poses (B,P,K,4) [x,y,v,scale], placed
+    (B,P,K), pose_valid (B,P), seed_v (B,P), n_dropped (B,) — kept seeds
+    beyond the budget — and seed_f (B,P), each slot's seed field, K where
+    the slot is empty).  Needs at least ``max_poses`` seed slots, as the
+    JAX version does.
+    """
+    b = seeds.v.shape[0]
+    p, k = config.max_poses, n_keypoints
+    dev = seeds.v.device
+    keep = _seed_keep(seeds, config)
+    order = _kept_first(keep, seeds.v)[:, :p]
+    sel_valid = torch.gather(keep, 1, order)
+    f = torch.gather(seeds.f, 1, order)
+    values = torch.stack([torch.where(sel_valid, torch.gather(a, 1, order),
+                                      0.0)
+                          for a in (seeds.x, seeds.y, seeds.v, seeds.s)],
+                         dim=-1)                                  # (B, P, 4)
+    bi = torch.arange(b, device=dev)[:, None]
+    rows = torch.arange(p, device=dev)[None, :]
+    poses = torch.zeros(b, p, k, 4, device=dev)
+    poses[bi, rows, f] = values
+    placed = torch.zeros(b, p, k, dtype=torch.bool, device=dev)
+    placed[bi, rows, f] = sel_valid
+    n_dropped = torch.clamp(keep.sum(dim=1) - sel_valid.sum(dim=1),
+                            min=0).int()
+    return (poses, placed, sel_valid, values[..., 2], n_dropped,
+            torch.where(sel_valid, f, k))
+
+
+def compact_seeds(seeds: Seeds, config: GrowthConfig):
+    """The seed list the waves consume, in rank order: ``(x, y, v, s, f,
+    valid)``, each (B, S).  With ``config.seed_dedup`` the seeds that
+    ``init_poses`` would drop are invalid and the kept ones move to the
+    front, still descending by value."""
+    if not config.seed_dedup:
+        return (seeds.x, seeds.y, torch.where(seeds.valid, seeds.v, 0.0),
+                seeds.s, seeds.f, seeds.valid)
+    keep = _seed_keep(seeds, config)
+    order = _kept_first(keep, seeds.v)
+    x, y, v, s, f, kept = (torch.gather(a, 1, order) for a in (
+        seeds.x, seeds.y, seeds.v, seeds.s, seeds.f, keep))
+    return x, y, torch.where(kept, v, 0.0), s, f, kept
 
 
 def _edge_table(ends: np.ndarray, n_keypoints: int) -> np.ndarray:
@@ -149,7 +226,12 @@ def _weighted_best(qx, qy, sigma, cxs, cys, cxt, cyt, cst, cvalid, cscore,
     dy = cys - qy[..., None]
     d2 = dx * dx + dy * dy
     sig2 = (sigma * sigma)[..., None]
-    w = torch.exp(-0.5 * d2 / (config.gauss_denom * sig2))
+    # in range, the exponent is >= -0.5 ff^2 / gd; the floor below that
+    # changes only values the mask zeroes, and spares the CPU's exp its
+    # slow path for large negative arguments
+    floor = -0.5 * config.filter_factor ** 2 / config.gauss_denom - 1.0
+    w = torch.exp(torch.clamp(-0.5 * d2 / (config.gauss_denom * sig2),
+                              min=floor))
     in_range = d2 <= (config.filter_factor ** 2) * sig2
     cs = torch.where(in_range & cvalid, w * cscore, 0.0)
 
@@ -244,16 +326,31 @@ def _connection_values(poses, placed, pose_valid, dv, et: EdgeTables,
                                  torch.ones_like(q_all, dtype=torch.bool))
 
 
+def _first_true(mask: torch.Tensor, m: int) -> torch.Tensor:
+    """(..., m) indices of the first m True entries of ``mask`` along its
+    last axis, ascending, then False ones: ``argsort(~mask, stable)[:m]``."""
+    return torch.argsort((~mask).to(torch.uint8), dim=-1,
+                         stable=True)[..., :m]
+
+
+def _top_m(values: torch.Tensor, m: int) -> torch.Tensor:
+    """(..., m) indices of the m largest ``values`` along the last axis,
+    ties to the lower index first (``jax.lax.top_k``'s order)."""
+    return torch.argsort(values, dim=-1, descending=True,
+                         stable=True)[..., :m]
+
+
 def grow(poses: torch.Tensor, placed: torch.Tensor, pose_valid: torch.Tensor,
          dv, et: EdgeTables, config: GrowthConfig, *,
-         fresh_onehot: torch.Tensor, active: torch.Tensor = None,
+         fresh_onehot: torch.Tensor = None, active: torch.Tensor = None,
          force_dv=None):
     """Frontier relaxation until no pose places a joint, or K-1 rounds.
 
     poses (B, P, K, 4) [x, y, v, scale]; placed (B, P, K); pose_valid
     (B, P); dv: ``dirviews`` of the candidates; fresh_onehot (B, P, K)
     marks the joints whose out-edge connections the first round computes
-    (the newly seeded ones: already-grown poses are at their fixed point).
+    (the newly seeded ones: already-grown poses are at their fixed point;
+    default ``placed``, the single-wave start after ``init_poses``).
 
     A (pose, edge) connection depends only on its source joint, which never
     moves once placed, so it is computed once, in the round after the
@@ -271,6 +368,8 @@ def grow(poses: torch.Tensor, placed: torch.Tensor, pose_valid: torch.Tensor,
     b, p, k = placed.shape
     q_n = et.src.shape[0]
     rows_k = torch.arange(k, device=poses.device)
+    m = max(1, config.placements_per_round)
+    d_out = et.out_edges.shape[1]
 
     def make_body(th: float, rel: float, reverse: bool, pass_dv):
         """One relaxation round at threshold ``th``, relative gate ``rel``,
@@ -279,13 +378,13 @@ def grow(poses: torch.Tensor, placed: torch.Tensor, pose_valid: torch.Tensor,
             poses, placed, rounds_done, _, value, tx, ty, ts, new_v, last = \
                 state
 
-            # connections that became computable: the joint placed last
-            # round (first True of ``last``, as JAX's stable argsort of
-            # ~last)
-            j_new = torch.argmax(last.to(torch.uint8), dim=2)        # (B, P)
-            new_ok = _take(last, j_new)
-            q_sel = et.out_edges[j_new]                              # (B,P,D)
-            q_ok = (q_sel < q_n) & new_ok[..., None]
+            # connections that became computable: the joints placed last
+            # round (the first m True of ``last``, as JAX's stable argsort
+            # of ~last)
+            j_new = _first_true(last, m)                           # (B,P,m)
+            new_ok = torch.gather(last, 2, j_new)
+            q_sel = et.out_edges[j_new].reshape(b, p, m * d_out)  # (B,P,mD)
+            q_ok = (q_sel < q_n) & new_ok.repeat_interleave(d_out, dim=2)
             fresh = _connection_values_at(poses, placed, pose_valid,
                                           pass_dv, et, config, reverse,
                                           q_sel, q_ok)
@@ -306,23 +405,24 @@ def grow(poses: torch.Tensor, placed: torch.Tensor, pose_valid: torch.Tensor,
             best_v = _take(conn_kd, d_star)
             best_q = et.in_edges[rows_k, d_star]
 
-            j_star = torch.argmax(best_v, dim=-1)                    # (B, P)
-            slot_ok = (_take(best_v, j_star) > 0.0) & pose_valid
+            # the top-m frontier joints per pose (m = 1: the best one, one
+            # priority-queue pop per pose); ties keep the lower joint first,
+            # as ``jax.lax.top_k``
+            j_star = _top_m(best_v, m)                               # (B,P,m)
+            slot_ok = ((torch.gather(best_v, 2, j_star) > 0.0)
+                       & pose_valid[..., None])
             j_safe = torch.where(slot_ok, j_star, k)                # pad spill
-            bq = _take(best_q, j_star)
-            new_data = torch.stack([_take(tx, bq), _take(ty, bq),
-                                    _take(new_v, bq), _take(ts, bq)], dim=-1)
+            bq = torch.gather(best_q, 2, j_star)
+            new_data = torch.stack([torch.gather(t, 2, bq)
+                                    for t in (tx, ty, new_v, ts)], dim=-1)
             poses = F.pad(poses, (0, 0, 0, 1)).scatter(
-                2, j_safe[:, :, None, None].expand(b, p, 1, 4),
-                new_data[:, :, None, :])[:, :, :k]
+                2, j_safe[..., None].expand(b, p, m, 4), new_data)[:, :, :k]
             onehot = torch.zeros(b, p, k + 1, dtype=torch.bool,
-                                 device=poses.device)
-            onehot[torch.arange(b, device=poses.device)[:, None],
-                   torch.arange(p, device=poses.device)[None, :],
-                   j_safe] = True
-            onehot = onehot[..., :k]
+                                 device=poses.device).scatter(
+                2, j_safe, True)[..., :k]
             return (poses, placed | onehot, rounds_done + 1,
-                    slot_ok.any(dim=1), value, tx, ty, ts, new_v, onehot)
+                    slot_ok.any(dim=2).any(dim=1), value, tx, ty, ts, new_v,
+                    onehot)
 
         return body
 
@@ -342,7 +442,7 @@ def grow(poses: torch.Tensor, placed: torch.Tensor, pose_valid: torch.Tensor,
         poses, placed,
         make_body(config.keypoint_threshold, config.keypoint_threshold_rel,
                   config.reverse_match, dv),
-        (table,) * 5, fresh_onehot)
+        (table,) * 5, placed if fresh_onehot is None else fresh_onehot)
     if config.force_complete:
         fc_dv = dv if force_dv is None else force_dv
         full = _connection_values(poses, placed, pose_valid, fc_dv, et,
@@ -374,9 +474,7 @@ def grow_waves(seeds: Seeds, cand: CafCandidates, edges: DirectedEdges, *,
     with a leading batch axis; ``alive`` includes the seed-claim
     suppression, ``n_dropped`` (B,) counts eligible seeds left unconsumed.
     """
-    config.check_supported()
-    sx, sy, ss, sf, s_valid = seeds.x, seeds.y, seeds.s, seeds.f, seeds.valid
-    sv = torch.where(s_valid, seeds.v, 0.0)
+    sx, sy, sv, ss, sf, s_valid = compact_seeds(seeds, config)
     b, s = sx.shape
     p = config.max_poses
     k = n_keypoints

@@ -159,13 +159,20 @@ def decode_cifcaf(cif_fields: torch.Tensor, caf_fields: torch.Tensor, *,
     cif_fields: (B, Fk, 5, H, W); caf_fields: (B, Fe, 9, H, W) — raw head
     outputs (activations applied here).
     """
+    fe = decode_front_end(cif_fields, caf_fields, cif_meta=cif_meta,
+                          caf_meta=caf_meta, config=config)
+    return decode_back_end(fe, cif_meta=cif_meta, caf_meta=caf_meta,
+                           config=config)
+
+
+def decode_back_end(fe: FrontEnd, *, cif_meta, caf_meta,
+                    config: CifCafConfig) -> DecodedPoses:
+    """Growth, joint scales and keypoint NMS on a front end's seeds and
+    candidates."""
     skeleton = np.asarray(caf_meta.skeleton, np.int64) - 1
     score_weights = (cif_meta.score_weights
                      if cif_meta.score_weights is not None
                      else [1.0] * cif_meta.n_fields)
-
-    fe = decode_front_end(cif_fields, caf_fields, cif_meta=cif_meta,
-                          caf_meta=caf_meta, config=config)
     fk = cif_meta.n_fields
 
     # 4) wave-recycled parallel frontier growth (seed-claim fixpoint
@@ -198,7 +205,6 @@ def make_batch_decoder(*, cif_meta, caf_meta, config: CifCafConfig,
     -> DecodedPoses`` on ``device`` (``None``: the card, raising without
     CUDA).  Fields given as numpy arrays or tensors elsewhere are moved."""
     device = resolve_device(device)
-    config.growth.check_supported()
 
     @torch.no_grad()
     def decode(cif_fields, caf_fields) -> DecodedPoses:

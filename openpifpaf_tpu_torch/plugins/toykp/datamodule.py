@@ -2,10 +2,13 @@
 
 Port of ``openpifpaf_tpu/plugins/toykp/datamodule.py`` (``ToyKpDataset``,
 ``ToyKp``): person-like keypoint constellations rendered as distinctive
-blobs, with the full COCO CIF (17 × 5) and CAF (19 × 9) heads, so training
-and eval at full width need no download.  The eval loader (the val
-images, seed 1000) takes multi-scale variants (``long_edge``, ``hflip``)
-and ``metrics`` scores it with the COCO keypoint metric.  ``ground_truth`` and ``render`` do the
+blobs, with the full COCO CIF (17 × 5) and CAF (19 × 9) heads and, with
+``--toykp-with-dense``, the dense ``caf25`` head (18 × 9, cocokp's), so
+training and eval at full width need no download.  The eval loader (the
+val images, seed 1000) takes multi-scale variants (``long_edge``,
+``hflip``) and ``metrics`` scores it with the COCO keypoint metric.  The
+crowd and WholeBody variants (``crowd.py``, ``toywb.py``) swap
+``dataset_cls``.  ``ground_truth`` and ``render`` do the
 same numpy arithmetic; the image is a (3, H, W) tensor in uint8 levels
 instead of a PIL image.  The augmentations draw from one generator seeded
 from the data module's ``seed``.
@@ -133,14 +136,30 @@ def coco_head_metas():
     return [cif, caf]
 
 
+def dense_head_meta():
+    """The dense ``caf25`` head of ``--toykp-with-dense``: cocokp's
+    construction, over ``DENSER_COCO_PERSON_CONNECTIONS``."""
+    return headmeta.Caf('caf25', 'toykp',
+                        keypoints=constants.COCO_KEYPOINTS,
+                        sigmas=constants.COCO_PERSON_SIGMAS,
+                        pose=constants.COCO_UPRIGHT_POSE,
+                        skeleton=constants.DENSER_COCO_PERSON_CONNECTIONS,
+                        sparse_skeleton=constants.COCO_PERSON_SKELETON,
+                        only_in_field_of_view=True)
+
+
 class ToyKp(DataModule):
     n_images = 32
     n_val_images = 8
     image_size = 161
     augmentation = True
+    with_dense = False    # add the caf25 dense head (cocokp parity)
+    dataset_cls = ToyKpDataset    # the crowd and WholeBody variants swap it
 
     def __init__(self):
         self.head_metas = coco_head_metas()
+        if self.with_dense:
+            self.head_metas.append(dense_head_meta())
 
     @classmethod
     def cli(cls, parser: argparse.ArgumentParser) -> None:
@@ -150,12 +169,16 @@ class ToyKp(DataModule):
                            type=int)
         group.add_argument('--toykp-no-augmentation', dest='toykp_augmentation',
                            default=cls.augmentation, action='store_false')
+        group.add_argument('--toykp-with-dense', dest='toykp_with_dense',
+                           default=cls.with_dense, action='store_true',
+                           help='add the caf25-style dense head')
 
     @classmethod
     def configure(cls, args: argparse.Namespace) -> None:
         cls.n_images = args.toykp_n_images
         cls.image_size = args.toykp_image_size
         cls.augmentation = args.toykp_augmentation
+        cls.with_dense = args.toykp_with_dense
 
     @staticmethod
     def _normalize():
@@ -202,8 +225,8 @@ class ToyKp(DataModule):
 
     def _dataset(self, n_images: int, seed: int, rng_seed: int):
         rng = np.random.default_rng(rng_seed)
-        return ToyKpDataset(n_images, self.image_size, self.preprocess(rng),
-                            seed=seed, rng=rng)
+        return self.dataset_cls(n_images, self.image_size,
+                                self.preprocess(rng), seed=seed, rng=rng)
 
     def train_loader(self):
         return self.loader(self._dataset(self.n_images, 0, self.seed),
@@ -218,7 +241,7 @@ class ToyKp(DataModule):
         """The ``n_val_images`` images of seed 1000 (the val set), rendered
         at ``image_size``, rescaled and padded to ``long_edge`` (default
         ``image_size``), mirrored with ``hflip``."""
-        return self.eval_batches(ToyKpDataset(
+        return self.eval_batches(self.dataset_cls(
             self.n_val_images, self.image_size,
             self._eval_preprocess(long_edge, hflip), seed=1000))
 

@@ -10,6 +10,9 @@ with ``--force-complete-pose`` (the second candidate set and the relaxed
 second growth pass), each configuration built by the two packages'
 ``CifCaf.config_for``.  The port also reproduces
 ``golden_toykp_poses.json`` within ``tests/test_golden.py``'s tolerances.
+The decode options (``placements_per_round``, ``seed_dedup``, dense
+connections) are held in ``test_torch_port_decode_options*.py`` and
+``test_torch_port_dense.py``.
 """
 
 import json
@@ -23,7 +26,7 @@ from openpifpaf_tpu import decoder as jax_decoder
 from openpifpaf_tpu import headmeta as jax_headmeta
 from openpifpaf_tpu import ops as jax_ops
 from openpifpaf_tpu_torch import decoder, headmeta, ops
-from openpifpaf_tpu_torch.ops import common, growth
+from openpifpaf_tpu_torch.ops import common
 from openpifpaf_tpu_torch.plugins.coco import constants
 
 import test_decoder
@@ -216,23 +219,3 @@ def test_golden_poses_reproduced(golden):
     # the single-image call decodes the same poses
     one = dec([cif[1], caf[1]])
     assert [a.score for a in one] == [a.score for a in anns[1]]
-
-
-def test_unported_options_raise():
-    """Dense connections, ``placements_per_round > 1`` and ``seed_dedup``
-    are not ported and raise; force-complete is held above."""
-    cif_meta, caf_meta = metas(headmeta)
-    old = decoder.CifCaf.dense_connections
-    try:
-        decoder.CifCaf.dense_connections = 1.0
-        with pytest.raises(NotImplementedError):
-            decoder.CifCaf(cif_meta, caf_meta, dense_caf_meta=caf_meta,
-                           device='cpu')
-    finally:
-        decoder.CifCaf.dense_connections = old
-    for kw in (dict(placements_per_round=2), dict(seed_dedup=True),
-               dict(placements_per_round=2, force_complete=True)):
-        config = ops.CifCafConfig(growth=growth.GrowthConfig(**kw))
-        with pytest.raises(NotImplementedError):
-            ops.make_batch_decoder(cif_meta=cif_meta, caf_meta=caf_meta,
-                                   config=config, device='cpu')

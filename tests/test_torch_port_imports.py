@@ -52,7 +52,9 @@ def test_port_sources_found():
                  'plugins/toykp/datamodule.py', 'datasets/collate.py',
                  'eval.py', 'metric/__init__.py', 'metric/base.py',
                  'metric/coco.py', 'metric/cocoeval.py',
-                 'decoder/pose_similarity.py'):
+                 'decoder/pose_similarity.py', 'plugins/toykp/toywb.py',
+                 'plugins/toykp/crowd.py', 'plugins/wholebody/__init__.py',
+                 'plugins/wholebody/constants.py'):
         assert os.path.join(REPO, 'openpifpaf_tpu_torch', name) in files
     assert len(files) > 20
 
@@ -74,7 +76,9 @@ def test_import_loads_no_jax_and_builds_nothing():
         'subprocess.run = subprocess.Popen = refuse\n'
         'import sys, openpifpaf_tpu_torch.predictor, openpifpaf_tpu_torch.ops, '
         'openpifpaf_tpu_torch.train, openpifpaf_tpu_torch.eval, '
-        'openpifpaf_tpu_torch.metric, openpifpaf_tpu_torch.kernels as k\n'
+        'openpifpaf_tpu_torch.metric, openpifpaf_tpu_torch.plugins.toykp, '
+        'openpifpaf_tpu_torch.plugins.wholebody.constants, '
+        'openpifpaf_tpu_torch.kernels as k\n'
         f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]\n'
         'assert not bad, bad\n'
         'assert not k._LIBS\n')
