@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's predict, train and eval paths on an NVIDIA card,
-with the dense-connection and 133-keypoint WholeBody configurations.
+"""Drive the PyTorch port's predict, train, eval and tracking paths on an
+NVIDIA card, with the dense-connection and 133-keypoint WholeBody
+configurations.
 
 Usage (from the repository root, one CUDA card):
 
@@ -90,12 +91,28 @@ Phases, in order; any failure raises and exits non-zero:
    inputs the main path handed them; then the train CLI on ``toywb``
    (sn2k16, one epoch of 16 images at 321 px) and the eval CLI on its
    checkpoint;
-12. a ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
+12. tracking: (a) the temporal association at the budgets (96 x 96
+   poses, 128 TCAF candidates per keypoint type, a jittered painted crowd)
+   on the card under CUDA's sync debug mode set to raise, held to the
+   port's CPU association (identical match, scores within 1e-6 of
+   max(1, |s|)); (b) tshufflenetv2k16 with toykpst's CIF (17x5), CAF
+   (19x9) and TCAF (17x9) heads, bias-shifted, bf16, streams 16 frames at
+   641 px through ``video.VideoProcessor`` (the backbone on each new frame,
+   the heads on the cached pair, ``TrackingPose``'s decode and
+   association): per frame the backbone, heads, decode, association and
+   end-to-end ms, host syncs (the association's apart, exactly one), K1
+   and K2 calls (counts set to 0 before the stream, read after), peak
+   memory; four frames held to the CPU ``TrackingPose`` from the same
+   track state (``hold_tracking_frame``); (c) the train CLI on toykpst,
+   the eval CLI with the COCO and PoseTrack metrics, the video CLI on PNG
+   frames; (d) K1 and K2 held to their plain versions and timed on the
+   stream's inputs (one frame);
+13. a ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
    serve phase, ``eval_launches`` from the multi-scale eval,
-   ``dense_launches`` and ``wholebody_launches`` from those phases' runs,
-   ``wholebody`` its hold and times at the WholeBody shapes), the card's
-   name and power limit, then the last line ``{"ok": true, "device":
-   {...}}``.
+   ``dense_launches``, ``wholebody_launches`` and ``tracking_launches``
+   from those phases' runs, ``wholebody`` and ``tracking`` its hold and
+   times at those shapes), the card's name and power limit, then the last
+   line ``{"ok": true, "device": {...}}``.
 
 It imports only the port, torch and numpy.
 """
@@ -1741,11 +1758,13 @@ def painted_wholebody_scenes(wb, **jitter):
                           **jitter)
 
 
-def cli_train_eval(label: str, train_args, eval_args, out: str, heads):
+def cli_train_eval(label: str, train_args, eval_args, out: str, heads,
+                   extra_labels=()):
     """``python -m openpifpaf_tpu_torch.train`` on the card for one epoch
     of ``CLI_IMAGES`` images, then ``python -m openpifpaf_tpu_torch.eval``
     on its checkpoint: exit 0, the checkpoint's heads, the stats json's
-    keys and the data module's 8 eval images."""
+    keys and the data module's 8 eval images; the COCO metric's ten
+    stats, then ``extra_labels`` (a second metric's, counts among them)."""
     env = dict(os.environ, PYTHONPATH=REPO)
     start = time.perf_counter()
     result = subprocess.run(
@@ -1780,7 +1799,9 @@ def cli_train_eval(label: str, train_args, eval_args, out: str, heads):
             'images_per_second', 'stats', 'text_labels']
     if (names != heads or list(stats) != keys or stats['n_images'] != 8
             or stats['text_labels'][:3] != ['AP', 'AP0.5', 'AP0.75']
-            or not all(-1.0 <= v <= 1.0 for v in stats['stats'])):
+            or stats['text_labels'][10:] != list(extra_labels)
+            or not all(-1.0 <= v <= 1.0 for v in stats['stats'][:10])
+            or not all(np.isfinite(stats['stats']))):
         raise AssertionError(f'{label} CLIs: heads {names}, stats {stats}')
 
 
@@ -2098,16 +2119,478 @@ def wholebody_phase(port, card: str, tmp: str) -> dict:
     return dict(counts=counts, k1=k1, k2=k2)
 
 
+# --------------------------------------------------------------- tracking
+# the tracking phase: tshufflenetv2k16 (sn2k16 over frame pairs) with
+# toykpst's CIF (17x5), CAF (19x9) and TCAF (17x9) heads streams
+# TRACK_FRAMES frames at 641 px; TRACK_HELD of them are held to the CPU
+TRACK_FRAMES = 16
+TRACK_HELD = (0, 1, 8, 15)
+TRACK_PAN_PX = 8
+TRACK_CLI_EDGE = 321
+TRACK_CLI_FRAMES = 8
+POSETRACK_LABELS = ['MOTA', 'MOTP', 'misses', 'false_positives',
+                    'id_switches', 'n_gt']
+ASSOC_TOL = 1e-6   # relative: |d| <= 1e-6 * max(1, |score|)
+
+
+def paint_tcaf(field, kp1, kp2, scales, stride):
+    """Raw TCAF (K, 9, H, W): the cells between each keypoint's position in
+    the previous (``kp1``) and the current frame (``kp2``), as
+    ``tests/test_tracking.py`` paints them."""
+    _, _, h, w = field.shape
+    for f in range(field.shape[0]):
+        if kp1[f, 2] <= 0 or kp2[f, 2] <= 0:
+            continue
+        c1, c2 = kp1[f, :2] / stride, kp2[f, :2] / stride
+        for t in np.linspace(0.0, 1.0, max(
+                2, int(np.ceil(np.linalg.norm(c2 - c1))) + 1)):
+            i, j = (int(round(c)) for c in c1 + t * (c2 - c1))
+            if 0 <= i < w and 0 <= j < h:
+                field[f, :, j, i] = (
+                    inv_sigmoid(1.0), c1[0] - i, c1[1] - j, c2[0] - i,
+                    c2[1] - j, inv_softplus(0.5), inv_softplus(0.5),
+                    inv_softplus(scales[f] / stride),
+                    inv_softplus(scales[f] / stride))
+
+
+def association_inputs(constants, max_poses, seed=JITTER_SEEDS[0],
+                       jitter=0.05):
+    """One frame pair's association at the budgets, on the served grid: a
+    4 x 3 crowd of people (8 px per pose unit) panned by (12, -6) px, its
+    TCAF painted and jittered (N(0, ``jitter``) on every painted value, as
+    ``painted_scenes`` jitters: exact ties split across devices), and
+    ``max_poses`` valid poses per frame: the crowd, in other slots in the
+    two frames, and random poses that no TCAF cell supports."""
+    rng = np.random.default_rng(seed)
+    side = (SERVE_EDGE - 1) // 16 + 1
+    field = np.zeros((17, 9, side, side), np.float32)
+    field[:, 0] = -10.0
+    crowd = []
+    for dy in (0.0, 200.0, 400.0):
+        for dx in (-200.0, -70.0, 60.0, 190.0):
+            kp, scales = painted_person(constants.COCO_UPRIGHT_POSE,
+                                        constants.COCO_PERSON_SIGMAS,
+                                        dx + 80.0, dy + 20.0, 8.0)
+            moved = kp + np.array([12.0, -6.0, 0.0], np.float32)
+            paint_tcaf(field, kp, moved, scales, 16)
+            crowd.append((kp, moved))
+    painted = np.broadcast_to(field[:, :1] > -5.0, field.shape)
+    field += np.where(painted, rng.normal(0.0, jitter, field.shape),
+                      0.0).astype(np.float32)
+
+    def poses(order, frame):
+        xyv = np.zeros((max_poses, 17, 3), np.float32)
+        xyv[:, :, :2] = rng.uniform(0.0, SERVE_EDGE, (max_poses, 17, 2))
+        xyv[:, :, 2] = rng.uniform(0.1, 1.0, (max_poses, 17))
+        for slot, person in zip(order, crowd):
+            xyv[slot] = person[frame]
+        return xyv
+
+    prev = poses(rng.permutation(max_poses)[:len(crowd)], 0)
+    curr = poses(rng.permutation(max_poses)[:len(crowd)], 1)
+    valid = np.ones(max_poses, np.float32)
+    return field, prev, valid, curr, valid.copy(), len(crowd)
+
+
+def tcaf_meta(port):
+    meta = port.posetrack.ToyKpSt().head_metas[2]
+    meta.base_stride = 16
+    return meta
+
+
+def hold_association(port, card: str) -> dict:
+    """(a) the association at the budgets (96 x 96 poses, 128 candidates
+    per keypoint type) on the card, run with CUDA's sync debug mode set to
+    raise, against the port's CPU association of the same inputs:
+    candidates' validity and the match identical, scores within
+    ``ASSOC_TOL`` of max(1, |score|); then its time per frame pair."""
+    tracking = port.ops.tracking
+    meta = tcaf_meta(port)
+    config = tracking.TrackingConfig()
+    field, prev, prev_valid, curr, curr_valid, n_crowd = association_inputs(
+        port.constants, config.max_tracks)
+    inputs = [torch.from_numpy(a) for a in (field, prev, prev_valid, curr,
+                                            curr_valid)]
+
+    def run(f, *poses):
+        cands = tracking.tcaf_candidates(
+            port.models.split_fields(f, meta), stride=16, config=config)
+        scores = tracking.association_scores(cands, *poses, config)
+        return cands, scores, tracking.greedy_match(scores,
+                                                    config.min_match_score)
+
+    on_card = [t.cuda() for t in inputs]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        cands, scores, match = run(*on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    cpu_cands, cpu_scores, cpu_match = run(*inputs)
+    d = (scores.cpu() - cpu_scores).abs() / cpu_scores.abs().clamp(min=1.0)
+    same_valid = torch.equal(cands.valid.cpu(), cpu_cands.valid)
+    same_match = torch.equal(match.cpu(), cpu_match)
+    linked = int((match >= 0).sum())
+    print(f'association at the budgets ({config.max_tracks} x '
+          f'{config.max_tracks} poses, {config.max_candidates} candidates '
+          f'per keypoint type, {n_crowd} painted people): card under sync '
+          f'debug mode "error" (no host sync); valid candidates '
+          f'{int(cands.valid.sum())} card, {int(cpu_cands.valid.sum())} CPU, '
+          f'equal: {same_valid}; scores max|d|/max(1,|s|) {float(d.max()):.3e}'
+          f' (limit {ASSOC_TOL:g}); matches {linked} card, '
+          f'{int((cpu_match >= 0).sum())} CPU, identical: {same_match}',
+          flush=True)
+    if not (same_valid and same_match and float(d.max()) <= ASSOC_TOL
+            and linked >= n_crowd):
+        raise AssertionError('the card association differs from the CPU')
+
+    ms = cuda_ms(lambda: tracking.associate_on_device(
+        *on_card, tcaf_meta=meta, config=config))
+    print(f'association on the card: median {ms[0]:.4f} ms [min '
+          f'{ms[1]:.4f}, max {ms[2]:.4f}] per frame pair ({card})',
+          flush=True)
+    return dict(ms=ms[0], max_rel_err=float(d.max()))
+
+
+def tracking_model(port):
+    """tshufflenetv2k16 at full width with toykpst's heads on the card,
+    seeded weights, bf16, the heads' biases shifted."""
+    metas = port.posetrack.ToyKpSt().head_metas
+    model = port.models.factory('tshufflenetv2k16', metas, device='cuda',
+                                bf16=True, seed=0)
+    shift_head_biases(model, metas)
+    return model
+
+
+def track_frames(seed: int, n: int):
+    """``n`` frames of a pan across one seeded random image."""
+    base = np.random.default_rng(seed).integers(
+        0, 256, (SERVE_EDGE, SERVE_EDGE + TRACK_PAN_PX * n, 3),
+        dtype=np.uint8)
+    return [np.ascontiguousarray(
+        base[:, TRACK_PAN_PX * i:TRACK_PAN_PX * i + SERVE_EDGE])
+        for i in range(n)]
+
+
+def tracker_state(decoder) -> dict:
+    return copy.deepcopy({k: getattr(decoder, k) for k in (
+        'next_track_id', '_sequence', 'frame_number', 'prev_xyv',
+        'prev_valid', 'prev_ids', 'prev_ages')})
+
+
+def hold_tracking_frame(port, card_decoder, state, fields, card_anns,
+                        label) -> float:
+    """One streamed frame held to the port's CPU ``TrackingPose`` from the
+    same track state, on the card's fields, with the decode configuration
+    the card ran (f32 CifHr profiles): ``hold_at_budget``'s rule with the
+    ids — the same number of poses, and every card pose but at most one
+    with a CPU pose of the same id within 1e-3 in every xyv value."""
+    cpu = port.decoder.TrackingPose(card_decoder.cif_meta,
+                                    card_decoder.caf_meta,
+                                    card_decoder.tcaf_meta, device='cpu')
+    cpu.cifcaf.config_for = card_decoder.cifcaf.config_for
+    for key, value in copy.deepcopy(state).items():
+        setattr(cpu, key, value)
+    start = time.perf_counter()
+    cpu_anns = cpu([f.cpu() for f in fields])
+    cpu_by_id = {a.id_: a.data for a in cpu_anns}
+    worst, missed = 0.0, 0
+    for ann in card_anns:
+        other = cpu_by_id.get(ann.id_)
+        d = np.inf if other is None else float(np.abs(ann.data - other).max())
+        if d <= 1e-3:
+            worst = max(worst, d)
+        else:
+            missed += 1
+    print(f'{label}: card vs CPU TrackingPose from the same track state: '
+          f'poses {len(card_anns)} card, {len(cpu_anns)} CPU; ids '
+          f'{sorted(a.id_ for a in card_anns)[:6]}...; max|dxyv| of the '
+          f'poses matched by id {worst:.3e}; card poses without a CPU pose of '
+          f'the same id within 1e-3: {missed} (limit 1); CPU '
+          f'{time.perf_counter() - start:.1f} s', flush=True)
+    if len(card_anns) != len(cpu_anns) or missed > 1:
+        raise AssertionError(f'{label}: card and CPU tracking differ')
+    return worst
+
+
+def tracking_stream(port, card: str) -> dict:
+    """(b) ``TRACK_FRAMES`` frames streamed through ``VideoProcessor``: the
+    backbone (K2) on each new frame, the heads on the cached pair, the
+    decode (K1) and the association on the card; the association's device
+    part under CUDA's sync debug mode set to raise.  Per frame: the stages'
+    ms, host syncs (the association's apart), K1 and K2 calls; the
+    ``TRACK_HELD`` frames held to the CPU (``hold_tracking_frame``).  The
+    peak memory is the stream's own, its model included: the most
+    allocated while streaming, less what the earlier phases still hold
+    when it starts."""
+    tracking = port.ops.tracking
+    torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()
+    model = tracking_model(port)
+    processor = port.video.VideoProcessor(model, long_edge=SERVE_EDGE)
+    decoder = processor.decoder
+    frames = track_frames(3, TRACK_FRAMES)
+
+    captured, chains = [], []
+    launch, launch_chain = (port.cif_hr.cif_hr_accumulate,
+                            port.pair_chain.pair_chain)
+
+    def spy(*args, **kwargs):
+        captured.append(([a.clone() for a in args], dict(kwargs)))
+        return launch(*args, **kwargs)
+
+    def spy_chain(a, b, chain):
+        chains.append((a.clone(), b.clone(), chain))
+        return launch_chain(a, b, chain)
+
+    # warm-up on two frames, keeping what they hand K1 and K2
+    port.cif_hr.cif_hr_accumulate = spy
+    port.pair_chain.pair_chain = spy_chain
+    try:
+        for frame in frames[:2]:
+            processor.process(frame)
+    finally:
+        port.cif_hr.cif_hr_accumulate = launch
+        port.pair_chain.pair_chain = launch_chain
+    decoder.reset()
+    processor.prev_features = None
+
+    on_device = tracking.associate_on_device
+    assoc_syncs = []
+
+    def no_sync(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            return on_device(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+
+    call = tracking.associate
+
+    def counted(*args, **kwargs):
+        before = port.common.HOST_SYNCS
+        out = call(*args, **kwargs)
+        assoc_syncs[-1] += port.common.HOST_SYNCS - before
+        return out
+
+    held = {}
+
+    def keep(fields, meta=None):
+        i = len(per_frame)
+        if i in TRACK_HELD:
+            held[i] = [tracker_state(decoder), [f.clone() for f in fields]]
+        out = decoder(fields, meta)
+        if i in TRACK_HELD:
+            held[i].append(out)
+        return out
+
+    per_frame = []
+    tracking.associate_on_device = no_sync
+    tracking.associate = counted
+    processor.decoder = keep
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(port)
+    try:
+        for frame in frames:
+            assoc_syncs.append(0)
+            before = (port.cif_hr.KERNEL_LAUNCHES,
+                      port.pair_chain.KERNEL_LAUNCHES, port.common.HOST_SYNCS)
+            start = time.perf_counter()
+            preds, _ = processor.process(frame)
+            e2e = time.perf_counter() - start
+            t = processor.last_times
+            assoc = decoder.last_association_time
+            per_frame.append(dict(
+                e2e=e2e * 1e3, backbone=t['backbone'] * 1e3,
+                heads=t['heads'] * 1e3,
+                decode=(t['decoder'] - assoc) * 1e3, association=assoc * 1e3,
+                k1=port.cif_hr.KERNEL_LAUNCHES - before[0],
+                k2=port.pair_chain.KERNEL_LAUNCHES - before[1],
+                syncs=port.common.HOST_SYNCS - before[2],
+                poses=len(preds), ids=sorted(a.id_ for a in preds)))
+            if not all(np.isfinite(a.data).all() for a in preds):
+                raise AssertionError('tracking: non-finite annotation')
+    finally:
+        tracking.associate_on_device = on_device
+        tracking.associate = call
+        processor.decoder = decoder
+    counts = dict(k1=port.cif_hr.KERNEL_LAUNCHES,
+                  k1_cuda=port.cif_hr.CUDA_LAUNCHES,
+                  k2=port.pair_chain.KERNEL_LAUNCHES,
+                  k2_cuda=port.pair_chain.CUDA_LAUNCHES,
+                  syncs=port.common.HOST_SYNCS,
+                  peak_gib=(torch.cuda.max_memory_allocated()
+                            - held_before) / 2**30)
+    for row, syncs in zip(per_frame, assoc_syncs):
+        row['association_syncs'] = syncs
+
+    def col(key):
+        return [row[key] for row in per_frame]
+
+    print(f'tracking stream: {TRACK_FRAMES} frames at {SERVE_EDGE}x'
+          f'{SERVE_EDGE}, tshufflenetv2k16 bf16, biases shifted; per frame, '
+          f'median [min, max] ms: end to end {stat_ms(col("e2e"))}, backbone '
+          f'{stat_ms(col("backbone"))}, heads {stat_ms(col("heads"))}, decode '
+          f'{stat_ms(col("decode"))}, association '
+          f'{stat_ms(col("association"))}; host syncs per frame '
+          f'{stat_ms(col("syncs"))} (the association\'s: '
+          f'{sorted(set(col("association_syncs")))}); cif_hr calls per frame '
+          f'{col("k1")}, pair_chain calls per frame {sorted(set(col("k2")))}; '
+          f'poses per frame {col("poses")}; peak device memory of the stream '
+          f'{counts["peak_gib"]:.2f} GiB (over the '
+          f'{held_before / 2**30:.2f} GiB the earlier phases hold) ({card})',
+          flush=True)
+    want = dict(k1=TRACK_FRAMES + 1, k1_cuda=2 * (TRACK_FRAMES + 1),
+                k2=len(SN2K16_CHAINS) * TRACK_FRAMES,
+                k2_cuda=KERNELS_PER_BLOCK * SN2K16_BLOCKS * TRACK_FRAMES)
+    got = {k: counts[k] for k in want}
+    if (got != want or col('k1') != [2] + [1] * (TRACK_FRAMES - 1)
+            or set(col('k2')) != {len(SN2K16_CHAINS)}):
+        raise AssertionError(f'tracking: kernel counts {got}, want {want}')
+    if set(col('association_syncs')) != {1}:
+        raise AssertionError('tracking: the association synchronized '
+                             f'{col("association_syncs")} times per frame')
+    first, last = set(per_frame[1]['ids']), set(per_frame[-1]['ids'])
+    print(f'tracking ids: {len(first & last)} of frame 1\'s '
+          f'{len(first)} tracks still carry their id in frame '
+          f'{TRACK_FRAMES - 1}', flush=True)
+
+    worst = 0.0
+    for i in TRACK_HELD:
+        state, fields, anns = held[i]
+        worst = max(worst, hold_tracking_frame(
+            port, decoder, state, fields, anns, f'tracking frame {i}'))
+    return dict(counts=counts, per_frame=per_frame, captured=captured,
+                chains=chains, model=model, worst=worst)
+
+
+def tracking_kernels(port, stream) -> tuple:
+    """(d) K1 and K2 held to their plain versions and timed on what the
+    stream handed them: one frame's CifHr (F = 17) and the backbone's
+    three chains at batch 1."""
+    args, kwargs = stream['captured'][0]
+    k1 = measure_cif_hr(port.cif_hr, 'tracking frame', args, kwargs)
+    k1['shape'] = (f'(B, F, N) {tuple(args[0].shape)} -> '
+                   f'{tuple(kwargs["out_hw"])}')
+    first = stream['chains'][:len(SN2K16_CHAINS)]
+    shapes = [tuple(a.shape) for a, _, _ in first]
+    if shapes != [(1, side, side, c) for _, _, side, c in SN2K16_CHAINS]:
+        raise AssertionError(f'the streamed backbone ran K2 on {shapes}')
+    basenet = stream['model'].module.basenet
+    k2 = sum_chains([measure_pair_chain(
+        port.pair_chain, f'tracking stage {stage}', a, b, chain,
+        [getattr(basenet, f'stage{stage}_{i}') for i in range(1, n + 1)])
+        for (a, b, chain), (stage, n, _, _) in zip(first, SN2K16_CHAINS)])
+    k2['shape'] = ', '.join(f'{tuple(a.shape)} {str(a.dtype)[6:]}'
+                            for a, _, _ in first)
+    print(f'pair_chain per streamed frame (3 chains): kernel '
+          f'{k2["ms"]:.4f} ms, plain {k2["plain_ms"]:.4f} ms, canonical '
+          f'modules {k2["canonical_ms"]:.4f} ms, bound '
+          f'{k2["bound_ms"]:.4f} ms ({k2["bound_by"]})', flush=True)
+    return k1, k2
+
+
+def tracking_clis(port, tmp: str, shifted: str) -> None:
+    """(c) the train CLI on toykpst (tshufflenetv2k16, one epoch of 16
+    images at 161 px) and the eval CLI on its checkpoint with the COCO and
+    PoseTrack metrics; then both on ``shifted``, the stream's bias-shifted
+    model saved as a checkpoint, so that they run with poses: the eval CLI
+    must predict poses, and the video CLI, on PNG frames written by
+    ``image_io.write_png`` (the card's machine has no PIL), must write
+    poses on every frame and carry ids from frame to frame."""
+    out = os.path.join(tmp, 'toykpst')
+    cli_train_eval('toykpst', ['--dataset=toykpst',
+                               '--basenet=tshufflenetv2k16',
+                               f'--toykpst-n-images={CLI_IMAGES}'],
+                   ['--dataset=toykpst'], out, ['cif', 'caf', 'tcaf'],
+                   extra_labels=POSETRACK_LABELS)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    start = time.perf_counter()
+    result = subprocess.run(
+        [sys.executable, '-m', 'openpifpaf_tpu_torch.eval',
+         f'--checkpoint={shifted}', f'--batch-size={EVAL_BATCH}',
+         '--dataset=toykpst', '-o', shifted + '.eval'],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    if result.returncode != 0:
+        raise AssertionError('eval CLI on the shifted checkpoint failed:\n'
+                             f'{result.stderr[-3000:]}')
+    with open(shifted + '.eval.stats.json') as f:
+        stats = json.load(f)
+    stats = dict(zip(stats['text_labels'], stats['stats']))
+    predicted = stats['n_gt'] - stats['misses'] + stats['false_positives']
+    print(f'eval CLI on the shifted checkpoint: exit 0 in '
+          f'{time.perf_counter() - start:.1f} s, stats {stats}; poses '
+          f'predicted {predicted:g}', flush=True)
+    if not (predicted > 0 and all(np.isfinite(list(stats.values())))):
+        raise AssertionError(f'eval CLI on the shifted checkpoint: {stats}')
+
+    frames_dir = os.path.join(tmp, 'frames')
+    os.makedirs(frames_dir)
+    for i, frame in enumerate(track_frames(4, TRACK_CLI_FRAMES)):
+        port.image_io.write_png(os.path.join(frames_dir, f'{i:04d}.png'),
+                                frame[:TRACK_CLI_EDGE, :TRACK_CLI_EDGE])
+    start = time.perf_counter()
+    result = subprocess.run(
+        [sys.executable, '-m', 'openpifpaf_tpu_torch.video', '--source',
+         frames_dir, f'--checkpoint={shifted}',
+         f'--long-edge={TRACK_CLI_EDGE}', '--json-output',
+         shifted + '.video.jsonl'],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    if result.returncode != 0:
+        raise AssertionError(f'video CLI failed:\n{result.stderr[-3000:]}')
+    with open(shifted + '.video.jsonl') as f:
+        lines = [json.loads(line) for line in f]
+    ids = [{p['id_'] for p in line['predictions']} for line in lines]
+    carried = [len(a & b) for a, b in zip(ids, ids[1:])]
+    print(f'video CLI on the card, shifted checkpoint: exit 0 in '
+          f'{time.perf_counter() - start:.1f} s, {len(lines)} json lines, '
+          f'poses per frame {[len(l["predictions"]) for l in lines]}, ids '
+          f'carried from the frame before {carried}', flush=True)
+    if ([line['frame'] for line in lines] != list(range(TRACK_CLI_FRAMES))
+            or not all(ids) or not all(carried)):
+        raise AssertionError(f'video CLI json lines: {lines[:2]}')
+
+
+def save_tracking_model(port, model, path: str) -> None:
+    """The stream's model as an npz checkpoint with its toykpst heads."""
+    from openpifpaf_tpu_torch.models import checkpoint
+
+    checkpoint.save(
+        path, variables=port.models.to_jax_variables(
+            model.module.state_dict()),
+        head_metas=model.head_metas, basenet_name='tshufflenetv2k16',
+        base_stride=model.base_stride)
+
+
+def tracking_phase(port, card: str, tmp: str) -> dict:
+    """Pose tracking: (a) the association at the budgets held to the CPU,
+    (b) the stream, (c) the train, eval and video CLIs, (d) K1 and K2 at
+    the stream's shapes."""
+    start = time.perf_counter()
+    association = hold_association(port, card)
+    stream = tracking_stream(port, card)
+    k1, k2 = tracking_kernels(port, stream)
+    counts = stream['counts']
+    shifted = os.path.join(tmp, 'tshufflenetv2k16-shifted.npz')
+    save_tracking_model(port, stream['model'], shifted)
+    del stream
+    tracking_clis(port, tmp, shifted)
+    print(f'tracking phase: {time.perf_counter() - start:.1f} s ({card})',
+          flush=True)
+    return dict(counts=counts, k1=k1, k2=k2, association=association)
+
+
 class _Port:
     """The port's modules, imported after the card check."""
 
     def __init__(self):
-        from openpifpaf_tpu_torch import (datasets, decoder, headmeta, kernels,
-                                          losses, models, ops, training)
+        from openpifpaf_tpu_torch import (datasets, decoder, headmeta,
+                                          image_io, kernels, losses, models,
+                                          ops, training, video)
         from openpifpaf_tpu_torch import eval as eval_mod
         from openpifpaf_tpu_torch.models import fused_shufflenet
         from openpifpaf_tpu_torch.ops import cif_hr, common, pair_chain
-        from openpifpaf_tpu_torch.plugins import toykp
+        from openpifpaf_tpu_torch.plugins import posetrack, toykp
         from openpifpaf_tpu_torch.plugins.coco import constants
         from openpifpaf_tpu_torch.plugins.wholebody import constants as wb
         self.decoder, self.headmeta, self.kernels, self.models, self.ops = \
@@ -2118,6 +2601,7 @@ class _Port:
             datasets, losses, training, toykp
         self.eval_mod, self.fused_shufflenet = eval_mod, fused_shufflenet
         self.wb = wb
+        self.image_io, self.posetrack, self.video = image_io, posetrack, video
 
 
 def main() -> int:
@@ -2193,10 +2677,14 @@ def main() -> int:
         dense = dense_phase(port, card, tmp)
         phase('wholebody')
         wholebody = wholebody_phase(port, card, tmp)
-    max_err = max([max_err, wholebody['k1']['max_abs_err']]
+        phase('tracking')
+        tracked = tracking_phase(port, card, tmp)
+    max_err = max([max_err, wholebody['k1']['max_abs_err'],
+                   tracked['k1']['max_abs_err']]
                   + [r['max_abs_err'] for kind, r in evaluated['checks']
                      if kind == 'cif_hr'])
-    k2_err = max([k2_err, wholebody['k2']['max_abs_err']]
+    k2_err = max([k2_err, wholebody['k2']['max_abs_err'],
+                  tracked['k2']['max_abs_err']]
                  + [r['max_abs_err'] for kind, r in evaluated['checks']
                     if kind == 'pair_chain'])
     eval_counts = evaluated['runs']['multi-scale force-complete']['counts']
@@ -2216,6 +2704,8 @@ def main() -> int:
         'dense_launches': dense['k1'],
         'wholebody_launches': sum(c['k1'] for c in wb_counts),
         'wholebody': at_new_shape(wholebody['k1']),
+        'tracking_launches': tracked['counts']['k1'],
+        'tracking': at_new_shape(tracked['k1']),
         'max_abs_err': max_err, 'max_abs_diff': max_err,
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
@@ -2229,6 +2719,8 @@ def main() -> int:
         'dense_launches': dense['k2'],
         'wholebody_launches': sum(c['k2'] for c in wb_counts),
         'wholebody': at_new_shape(wholebody['k2']),
+        'tracking_launches': tracked['counts']['k2'],
+        'tracking': at_new_shape(tracked['k2']),
         'max_abs_err': k2_err, 'max_abs_diff': k2_err,
         'ms': k2_main['ms'], 'plain_ms': k2_main['plain_ms'],
         'bound_ms': k2_main['bound_ms'], 'bound_by': k2_main['bound_by'],

@@ -41,6 +41,7 @@ class Annotation:
         # ground truth (training transforms): crowd flag and the dataset's box
         self.iscrowd = False
         self.fixed_bbox: Optional[np.ndarray] = None
+        self.id_: int = -1  # tracking id
 
         if score_weights is not None:
             score_weights = np.asarray(score_weights, dtype=np.float32)
@@ -77,12 +78,15 @@ class Annotation:
         """COCO-result-format dict (same rounding as the reference)."""
         kps = np.copy(self.data)
         kps[kps[:, 2] == 0.0, :2] = 0.0
-        return {
+        data = {
             'keypoints': np.around(kps, coordinate_digits).reshape(-1).tolist(),
             'bbox': [round(float(c), coordinate_digits) for c in self.bbox()],
             'score': max(0.001, round(float(self.score), 3)),
             'category_id': self.category_id,
         }
+        if self.id_ >= 0:
+            data['id_'] = self.id_
+        return data
 
     def inverse_transform(self, meta) -> 'Annotation':
         """Map back to original image coordinates using transform meta
@@ -112,6 +116,7 @@ class Annotation:
         out.joint_scales = np.copy(self.joint_scales)
         out.fixed_score = self.fixed_score
         out.iscrowd = self.iscrowd
+        out.id_ = self.id_
         out.fixed_bbox = (None if self.fixed_bbox is None
                           else np.copy(self.fixed_bbox))
         return out

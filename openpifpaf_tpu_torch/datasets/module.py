@@ -66,21 +66,24 @@ class DataModule:
         one loader per (scale, hflip) variant and OKS-merges the decodes)."""
         raise NotImplementedError
 
-    def loader(self, dataset, *, shuffle: bool, seed: int) -> DataLoader:
+    def loader(self, dataset, *, shuffle: bool, seed: int,
+               collate_fn=collate_images_targets_meta) -> DataLoader:
         """Training-target batches of ``batch_size`` (incomplete batches
         dropped), shuffled from ``seed``."""
         return DataLoader(dataset, batch_size=self.batch_size,
                           shuffle=shuffle, drop_last=True,
-                          collate_fn=collate_images_targets_meta,
+                          collate_fn=collate_fn,
                           num_workers=self.loader_workers,
                           worker_init_fn=_reseed_worker,
                           generator=torch.Generator().manual_seed(seed))
 
-    def eval_batches(self, dataset) -> DataLoader:
+    def eval_batches(self, dataset,
+                     collate_fn=collate_images_anns_meta) -> DataLoader:
         """Eval batches of ``batch_size`` in dataset order: no shuffle, the
         last batch kept incomplete (``drop_last=False``), images with their
-        annotations and metas (``collate_images_anns_meta``)."""
+        annotations and metas (``collate_fn``, by default
+        ``collate_images_anns_meta``)."""
         return DataLoader(dataset, batch_size=self.batch_size,
                           shuffle=False, drop_last=False,
-                          collate_fn=collate_images_anns_meta,
+                          collate_fn=collate_fn,
                           num_workers=self.loader_workers)

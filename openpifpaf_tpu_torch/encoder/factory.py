@@ -1,8 +1,9 @@
 """Encoder factory and the Encoders transform.
 
-Port of ``openpifpaf_tpu/encoder/factory.py`` (``:21-58``) for the CIF and
-CAF heads.  ``Encoders`` is applied as the final training transform,
-turning (image, anns, meta) into (image, per-head targets, meta).
+Port of ``openpifpaf_tpu/encoder/factory.py`` (``:21-85``) for the CIF, CAF
+and TCAF heads.  ``Encoders`` is applied as the final training transform,
+turning (image, anns, meta) into (image, per-head targets, meta);
+``TrackingEncoders`` does it for frame pairs.
 """
 
 from __future__ import annotations
@@ -10,8 +11,11 @@ from __future__ import annotations
 import argparse
 from typing import Sequence
 
+import numpy as np
+
 from .caf import CafEncoder
 from .cif import CifEncoder
+from .tcaf import TcafEncoder
 from .. import headmeta
 
 
@@ -20,6 +24,8 @@ def factory_head(meta: headmeta.Base):
         return CifEncoder(meta)
     if isinstance(meta, headmeta.Caf):
         return CafEncoder(meta)
+    if isinstance(meta, headmeta.Tcaf):
+        return TcafEncoder(meta)
     raise ValueError(f'no encoder for head meta {type(meta).__name__}')
 
 
@@ -49,3 +55,26 @@ class Encoders:
     def __call__(self, image, anns, meta):
         targets = tuple(enc(image, anns, meta) for enc in self.encoders)
         return image, targets, meta
+
+
+class TrackingEncoders:
+    """Final training transform for frame pairs: single-frame heads get
+    per-frame targets stacked on a leading pair axis (folded into the batch
+    by the loss, ``losses/composite.py``); ``Tcaf`` heads get one
+    cross-frame target, painted on the current frame's grid."""
+
+    def __init__(self, encoders):
+        self.encoders = encoders
+
+    def __call__(self, images, anns_pair, meta):
+        image1, image2 = images
+        anns1, anns2 = anns_pair
+        targets = []
+        for enc in self.encoders:
+            if isinstance(enc, TcafEncoder):
+                targets.append(enc(image2, (anns1, anns2), meta))
+            else:
+                t1 = enc(image1, anns1, meta)
+                t2 = enc(image2, anns2, meta)
+                targets.append({k: np.stack([t1[k], t2[k]]) for k in t1})
+        return images, tuple(targets), meta

@@ -13,8 +13,9 @@ skeletons, visualizers) reads them.
 Port copy of ``openpifpaf_tpu/headmeta.py``: the PyTorch package keeps its
 own copy so that it imports nothing of the JAX package.  It holds the
 metas of the ported CifCaf path, ``Caf.concatenate`` (the sparse and dense
-skeletons of ``--dense-connections``) included; ``CifDet`` and ``Tcaf``
-come with their decoders.
+skeletons of ``--dense-connections``) included, and ``Tcaf``, the temporal
+association head of the tracking models; ``CifDet`` comes with its
+decoder.
 """
 
 from __future__ import annotations
@@ -149,3 +150,44 @@ class Caf(Base):
                       if meta.decoder_confidence_scales is not None
                       else [1.0] * len(meta.skeleton))]
         return concatenated
+
+
+@dataclasses.dataclass
+class Tcaf(Base):
+    """Temporal Composite Association Field metadata (tracking across frames).
+
+    Reference: ``headmeta.py:~150``.  Associates the same keypoint type
+    between two consecutive frames: per keypoint, (confidence, offset in
+    frame 1, offset in frame 2, two spreads, two scales), 1 + 2 * 2 + 2 + 2
+    = 9 components.
+    """
+
+    keypoints_single_frame: List[str] = None
+    sigmas_single_frame: List[float] = None
+    pose_single_frame: Any = None
+    draw_skeleton_single_frame: Optional[List[Tuple[int, int]]] = None
+    keypoints: List[str] = None
+    sigmas: List[float] = None
+    pose: Any = None
+    draw_skeleton: Optional[List[Tuple[int, int]]] = None
+
+    only_in_field_of_view: bool = False
+    training_weights: Optional[List[float]] = None
+
+    n_confidences: ClassVar[int] = 1
+    n_vectors: ClassVar[int] = 2
+    n_scales: ClassVar[int] = 2
+
+    vector_offsets = [True, True]
+
+    @property
+    def skeleton(self):
+        """The temporal 'skeleton': keypoint k in frame t-1 <-> keypoint k
+        in frame t (1-based, the second frame's keypoints after the
+        first's)."""
+        n = len(self.keypoints_single_frame)
+        return [(i + 1, i + 1 + n) for i in range(n)]
+
+    @property
+    def n_fields(self) -> int:
+        return len(self.keypoints_single_frame)

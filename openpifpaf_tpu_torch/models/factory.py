@@ -4,6 +4,10 @@ Port of the predict-path subset of ``openpifpaf_tpu/models/factory.py``
 (``Factory.factory`` / ``build_module`` / ``from_checkpoint``).  A fresh
 model draws its weights from a seeded ``torch.Generator``; a checkpoint is
 the JAX package's npz, carried over by ``from_jax.from_jax_variables``.
+Tracking models (any ``Tcaf`` head meta, or a ``t``-prefixed basenet such
+as ``tshufflenetv2k16``) get a ``TrackingShell`` over frame pairs, as
+``factory.py:128-163`` builds them; the paired TCAF head takes both
+frames' features, ``2 * out_features`` channels (flax infers that width).
 """
 
 from __future__ import annotations
@@ -20,16 +24,26 @@ from .base import BASE_FACTORIES
 from .from_jax import from_jax_variables
 from .heads import CompositeField4
 from .shell import Model, Shell
+from .tracking_base import TrackingModel, TrackingShell, is_tracking_metas
 from .. import headmeta as headmeta_mod
 from ..device import resolve_device
 
 
 def build_shell(basenet_name: str, head_metas: Sequence[headmeta_mod.Base]):
-    """Construct the (uninitialized) Shell; returns (shell, base stride)."""
+    """Construct the (uninitialized) Shell, a ``TrackingShell`` for a
+    tracking model; returns (shell, base stride)."""
+    tracking = is_tracking_metas(head_metas)
+    if (basenet_name not in BASE_FACTORIES and basenet_name.startswith('t')
+            and basenet_name[1:] in BASE_FACTORIES):
+        basenet_name, tracking = basenet_name[1:], True
     spec = BASE_FACTORIES[basenet_name]
     for meta in head_metas:
         meta.base_stride = spec.stride
-    heads = [CompositeField4(meta, spec.out_features) for meta in head_metas]
+    paired = [isinstance(m, headmeta_mod.Tcaf) for m in head_metas]
+    heads = [CompositeField4(meta, (2 if p else 1) * spec.out_features)
+             for meta, p in zip(head_metas, paired)]
+    if tracking:
+        return TrackingShell(spec.build(), heads, paired), spec.stride
     return Shell(spec.build(), heads), spec.stride
 
 
@@ -70,8 +84,9 @@ def factory(base_name: Optional[str] = None,
                              'must be given')
         shell, stride = build_shell(base_name, head_metas)
         init_weights(shell, torch.Generator().manual_seed(seed))
-    model = Model(shell, head_metas, base_stride=stride,
-                  basenet_name=base_name, device=device, bf16=bf16)
+    model_cls = TrackingModel if isinstance(shell, TrackingShell) else Model
+    model = model_cls(shell, head_metas, base_stride=stride,
+                      basenet_name=base_name, device=device, bf16=bf16)
     if checkpoint is not None:
         model.epoch = header.get('epoch', 0)
     return model

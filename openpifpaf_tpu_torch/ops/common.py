@@ -99,8 +99,9 @@ def masked_top_k(values: torch.Tensor, mask: torch.Tensor, k: int):
     Requests larger than the axis are padded so output shapes stay fixed.
     """
     neg = torch.finfo(torch.float32).min
-    masked = torch.where(mask, values.float(),
-                         torch.tensor(neg, device=values.device))
+    # a Python scalar, not a tensor made on the device: that would be a
+    # synchronous host-to-device copy
+    masked = torch.where(mask, values.float(), neg)
     n = masked.shape[-1]
     vals, idx = torch.sort(masked, dim=-1, descending=True, stable=True)
     vals, idx = vals[..., :min(k, n)], idx[..., :min(k, n)]

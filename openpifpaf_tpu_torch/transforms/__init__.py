@@ -2,7 +2,8 @@
 
 The eval functions the ``Predictor`` runs (``eval.py``: ``preprocess``,
 ``rescale_absolute``, ``center_pad``, ``normalize``, ``init_meta``) and the
-training transforms ``ToyKp`` composes, ported from
+training transforms ``ToyKp`` and ``ToyKpSt`` compose (with the frame
+pair transforms of ``pair.py``), ported from
 ``openpifpaf_tpu/transforms`` with the same ``Preprocess`` contract and
 meta tracking.  Random transforms draw from an explicit
 ``np.random.Generator``.
@@ -17,6 +18,7 @@ from .eval import (IMAGENET_MEAN, IMAGENET_STD, PAD_FILL, center_pad,
 from .hflip import HFlip, HorizontalSwap, hflip_map_from_keypoints
 from .image import ImageToTensor
 from .pad import CenterPad
+from .pair import ImageToTracking, SingleImage, SyncPair
 from .random import RandomApply
 from .scale import RescaleAbsolute, RescaleRelative
 
@@ -29,6 +31,7 @@ __all__ = [
     'IMAGENET_MEAN', 'IMAGENET_STD', 'PAD_FILL', 'center_pad', 'init_meta',
     'normalize', 'preprocess', 'rescale_absolute', 'resize', 'HFlip',
     'HorizontalSwap', 'hflip_map_from_keypoints', 'ImageToTensor',
-    'CenterPad', 'Preprocess', 'RandomApply', 'RescaleAbsolute',
-    'RescaleRelative', 'TRAIN_TRANSFORM',
+    'CenterPad', 'ImageToTracking', 'Preprocess', 'RandomApply',
+    'RescaleAbsolute', 'RescaleRelative', 'SingleImage', 'SyncPair',
+    'TRAIN_TRANSFORM',
 ]

@@ -40,5 +40,7 @@ class NormalizeAnnotations(Preprocess):
             bbox = raw.get('bbox')
             if bbox is not None:
                 ann.fixed_bbox = np.asarray(bbox, np.float32)
+            if 'track_id' in raw:
+                ann.id_ = int(raw['track_id'])
             out.append(ann)
         return image, out, meta

@@ -54,7 +54,12 @@ def test_port_sources_found():
                  'metric/coco.py', 'metric/cocoeval.py',
                  'decoder/pose_similarity.py', 'plugins/toykp/toywb.py',
                  'plugins/toykp/crowd.py', 'plugins/wholebody/__init__.py',
-                 'plugins/wholebody/constants.py'):
+                 'plugins/wholebody/constants.py', 'video.py', 'signal_.py',
+                 'image_io.py', 'ops/tracking.py', 'decoder/tracking_pose.py',
+                 'models/tracking_base.py', 'plugins/posetrack/__init__.py',
+                 'plugins/posetrack/toykpst.py', 'metric/posetrack.py',
+                 'encoder/tcaf.py', 'transforms/pair.py',
+                 'datasets/loader_with_reset.py'):
         assert os.path.join(REPO, 'openpifpaf_tpu_torch', name) in files
     assert len(files) > 20
 
@@ -78,6 +83,12 @@ def test_import_loads_no_jax_and_builds_nothing():
         'openpifpaf_tpu_torch.train, openpifpaf_tpu_torch.eval, '
         'openpifpaf_tpu_torch.metric, openpifpaf_tpu_torch.plugins.toykp, '
         'openpifpaf_tpu_torch.plugins.wholebody.constants, '
+        'openpifpaf_tpu_torch.video, openpifpaf_tpu_torch.signal_, '
+        'openpifpaf_tpu_torch.image_io, openpifpaf_tpu_torch.ops.tracking, '
+        'openpifpaf_tpu_torch.decoder.tracking_pose, '
+        'openpifpaf_tpu_torch.models.tracking_base, '
+        'openpifpaf_tpu_torch.plugins.posetrack, '
+        'openpifpaf_tpu_torch.metric.posetrack, '
         'openpifpaf_tpu_torch.kernels as k\n'
         f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]\n'
         'assert not bad, bad\n'
@@ -108,6 +119,12 @@ def test_entry_points_default_to_the_card():
                                config=ops.CifCafConfig())
     with pytest.raises(RuntimeError, match='CUDA'):
         decoder.factory([cif, caf])
+    from openpifpaf_tpu_torch.plugins.posetrack import ToyKpSt
+    tracking_metas = ToyKpSt().head_metas
+    with pytest.raises(RuntimeError, match='CUDA'):
+        decoder.factory(tracking_metas)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        models.factory('tshufflenetv2k16', tracking_metas)
     with pytest.raises(RuntimeError, match='CUDA'):
         Predictor(base_name='shufflenetv2k16', head_metas=coco_metas(),
                   device='cuda')
