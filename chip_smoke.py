@@ -1,6 +1,6 @@
-"""Drive the PyTorch port's predict, train, eval and tracking paths on an
-NVIDIA card, with the dense-connection and 133-keypoint WholeBody
-configurations.
+"""Drive the PyTorch port's predict, train, eval, tracking and detection
+paths on an NVIDIA card, with the dense-connection and 133-keypoint
+WholeBody configurations.
 
 Usage (from the repository root, one CUDA card):
 
@@ -107,12 +107,29 @@ Phases, in order; any failure raises and exits non-zero:
    the eval CLI with the COCO and PoseTrack metrics, the video CLI on PNG
    frames; (d) K1 and K2 held to their plain versions and timed on the
    stream's inputs (one frame);
-13. a ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
+13. detect: (b) sn2k16 with cocodet's CifDet head (80 categories x 7),
+   bf16, the head calibrated so that the confidences spread over (0.3,
+   0.95) and the boxes over 64-320 px (``calibrate_det_head``), decoded
+   at seed threshold 0.15: 3 chained batches of 8 at 641 px through
+   ``Predictor`` (K1 once and K2 three times per batch, no host sync:
+   the CifDet decode has no fixpoint loop; counts set to 0 before, read
+   after), per-image ms, peak memory less what earlier phases hold, two
+   images' decode held to the CPU decode (``hold_dets``); (a) K1 held to
+   its plain version and timed at the serve's inputs (F = 80, 321^2 hr);
+   (c) the train CLI on ``toykp,cifar10`` (every head loss finite, three
+   heads in the checkpoint), a calibrated three-head sn2k16 saved as a
+   checkpoint (K1 held and timed at cifar10's shape, F = 10 on a 5x5 grid,
+   17^2 hr, on its 33 px prediction), the predict CLI on it with 8 PNGs
+   of 641 px on the card (poses and boxes in every json) and with 2 PNGs
+   of 129 px on the card and on the CPU, f32, held by
+   ``hold_predict_jsons``;
+14. a ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
    serve phase, ``eval_launches`` from the multi-scale eval,
-   ``dense_launches``, ``wholebody_launches`` and ``tracking_launches``
-   from those phases' runs, ``wholebody`` and ``tracking`` its hold and
-   times at those shapes), the card's name and power limit, then the last
-   line ``{"ok": true, "device": {...}}``.
+   ``dense_launches``, ``wholebody_launches``, ``tracking_launches`` and
+   ``detect_launches`` from those phases' runs, ``wholebody``,
+   ``tracking``, ``detect`` and ``detect_cifar10`` its hold and times at
+   those shapes), the card's name and power limit, then the last line
+   ``{"ok": true, "device": {...}}``.
 
 It imports only the port, torch and numpy.
 """
@@ -1593,7 +1610,7 @@ def served_run(port, predictor, batches, label: str,
         fwd.append(predictor.last_nn_time * 1e3 / len(images))
         dec.append(predictor.last_decoder_time * 1e3 / len(images))
         n_anns += [len(preds) for preds, _ in results]
-        if not all(np.isfinite(ann.data).all()
+        if not all(np.isfinite(ann_values(ann)).all()
                    for preds, _ in results for ann in preds):
             raise AssertionError(f'{label}: non-finite annotation')
     del predictor.decoder.batch_decoded
@@ -1615,6 +1632,11 @@ def served_run(port, predictor, batches, label: str,
           flush=True)
     return dict(counts=counts, captured=captured, chains=chains,
                 decoded=decoded[0], e2e=e2e)
+
+
+def ann_values(ann) -> np.ndarray:
+    """A pose's xyv, a detection's box."""
+    return ann.data if getattr(ann, 'data', None) is not None else ann.bbox
 
 
 def check_field_shapes(fields, label: str, heads) -> None:
@@ -2580,6 +2602,420 @@ def tracking_phase(port, card: str, tmp: str) -> dict:
     return dict(counts=counts, k1=k1, k2=k2, association=association)
 
 
+# ----------------------------------------------------------------- detect
+# the detect phase: sn2k16 with cocodet's CifDet head (80 categories x 7)
+# serves 3 chained batches of 8 at 641 px; DETECT_HELD images of the first
+# are held to the CPU decode; the CifDet head is calibrated so that the
+# confidences spread over DET_CONF and the boxes over DET_BOX_PX
+DETECT_HELD = 2
+DET_CONF = (0.3, 0.95)
+DET_BOX_PX = (64.0, 320.0)
+DET_OFFSET_CELLS = 0.5
+# a seed must reach 0.9 x its CifHr value + 0.1 x its confidence; at the
+# JAX default of 0.3 that takes ~5 confident cells whose splats meet at one
+# center, which seeded random weights never give; at 0.15, the instance
+# threshold, ~36 of an image's 64 best cells survive the NMS
+DET_SEED_THRESHOLD = 0.15
+DET_BOX_TOL = 1e-3     # px
+DET_SCORE_TOL = 1e-5
+# the multi-task part: toykp,cifar10 trained by the CLI at MULTI_EDGE,
+# then the predict CLI on a calibrated three-head sn2k16 at 641 px (8 PNGs
+# on the card) and at MULTI_EDGE (2 PNGs, card and CPU)
+MULTI_EDGE = 129
+MULTI_IMAGES = 16
+CIFAR10_EDGE = 33
+# the predict json rounds coordinates to 0.01 px and scores to 0.001
+JSON_XY_TOL = 0.01 + 1e-3
+JSON_SCORE_TOL = 0.001 + 1e-4
+
+
+def cocodet_metas(port):
+    """cocodet's head (``openpifpaf_tpu/plugins/coco/cocodet.py``): CifDet
+    over the 80 COCO categories, no upsampling (stride 16)."""
+    return [port.headmeta.CifDet('cifdet', 'cocodet',
+                                 categories=port.constants.COCO_CATEGORIES)]
+
+
+def cifar10_three_head_metas(port):
+    """The heads ``--dataset toykp,cifar10`` merges: toykp's CIF and CAF,
+    cifar10's CifDet (10 categories, PixelShuffle 2: stride 8)."""
+    from openpifpaf_tpu_torch.plugins.cifar10 import Cifar10
+
+    return port.toykp.coco_head_metas() + Cifar10().head_metas
+
+
+def calibrate_det_head(model, meta, x) -> str:
+    """Seeded weights give a CifDet head whose raw outputs sit near 0 (50%
+    confidence everywhere, boxes of 0 px).  Rescale and shift each
+    component's conv rows, over all categories, from the mean and standard
+    deviation of the raw outputs on the images ``x``: confidence logits
+    with mean +- 2 std at the logits of ``DET_CONF``, offsets of std
+    ``DET_OFFSET_CELLS`` cells around 0, box sides with mean +- 2 std at
+    ``DET_BOX_PX`` (at the head's stride); the spreads stay.  Returns the
+    spread reached, as text."""
+    lo, hi = (float(np.log(p / (1.0 - p))) for p in DET_CONF)
+    box_lo, box_hi = (px / meta.stride for px in DET_BOX_PX)
+    targets = {0: ((lo + hi) / 2, (hi - lo) / 4),
+               1: (0.0, DET_OFFSET_CELLS), 2: (0.0, DET_OFFSET_CELLS),
+               3: ((box_lo + box_hi) / 2, (box_hi - box_lo) / 4),
+               4: ((box_lo + box_hi) / 2, (box_hi - box_lo) / 4)}
+    conv = model.module.head_nets[meta.head_index].conv
+    weight = conv.weight.data.view(meta.n_fields, meta.n_components, -1)
+    bias = conv.bias.data.view(meta.n_fields, meta.n_components, -1)
+    with torch.no_grad():
+        raw = model(x)[meta.head_index].float()
+        for c, (mean, std) in targets.items():
+            k = std / float(raw[:, :, c].std())
+            m = float(raw[:, :, c].mean())
+            weight[:, c] *= k
+            bias[:, c] = (bias[:, c] - m) * k + mean
+        raw = model(x)[meta.head_index].float()
+    conf = torch.sigmoid(raw[:, :, 0])
+    box = raw[:, :, 3:5] * meta.stride
+    return (f'confidences {float(conf.quantile(0.025)):.3f}-'
+            f'{float(conf.quantile(0.975)):.3f} (95% of cells), box sides '
+            f'{float(box.quantile(0.025)):.1f}-{float(box.quantile(0.975)):.1f}'
+            f' px, offsets std {float(raw[:, :, 1:3].std()):.3f} cells')
+
+
+def cpu_det_decode(port, meta, field):
+    """The port's CPU CifDet decode of ``field`` with the card's
+    configuration (f32 CifHr profiles)."""
+    decoder = port.decoder.CifDet(meta, device='cpu')
+    config_for = decoder.config_for
+    decoder.config_for = lambda image_hw: dataclasses.replace(
+        config_for(image_hw), cifhr=dataclasses.replace(
+            config_for(image_hw).cifhr, profile_bf16=False))
+    return decoder.batch_decoded({meta.head_index: field.cpu()})
+
+
+def unmatched_dets(a, b, box_tol, score_tol):
+    """Per image, the valid detections (score > 0) of ``a`` that have no
+    free valid detection of ``b`` with the same category, the box within
+    ``box_tol`` and the score within ``score_tol``; and the largest box
+    and score differences over the matched ones.  ``a``, ``b``: (category,
+    score, bbox) numpy arrays, (B, K), (B, K), (B, K, 4)."""
+    missed, dbox, dscore = [], 0.0, 0.0
+    for i in range(a[1].shape[0]):
+        va, vb = a[1][i] > 0, b[1][i] > 0
+        free = list(np.flatnonzero(vb))
+        n = 0
+        for j in np.flatnonzero(va):
+            best = None
+            for k in free:
+                d_box = float(np.abs(a[2][i, j] - b[2][i, k]).max())
+                d_score = abs(float(a[1][i, j]) - float(b[1][i, k]))
+                if (a[0][i, j] == b[0][i, k] and d_box <= box_tol
+                        and d_score <= score_tol):
+                    best = k
+                    dbox, dscore = max(dbox, d_box), max(dscore, d_score)
+                    break
+            if best is None:
+                n += 1
+            else:
+                free.remove(best)
+        missed.append(n)
+    return missed, dbox, dscore
+
+
+def hold_dets(card, cpu, label: str) -> None:
+    """The card's detections against the CPU's on the same fields (f32
+    profiles): per image the same number of valid detections, each card
+    detection matched to a CPU one of its category with the box within
+    ``DET_BOX_TOL`` px and the score within ``DET_SCORE_TOL``, but at most
+    one per image: where the top-k or the NMS meets an exact tie (two
+    cells of one score; a box on the IoU threshold), the last ulp of the
+    card's and the CPU's f32 sums decides, and neither is wrong."""
+    card = [t.cpu().numpy() for t in card]
+    cpu = [t.cpu().numpy() for t in cpu]
+    n_card, n_cpu = (card[1] > 0).sum(1), (cpu[1] > 0).sum(1)
+    missed, dbox, dscore = unmatched_dets(card, cpu, DET_BOX_TOL,
+                                          DET_SCORE_TOL)
+    same_slots = (np.array_equal(card[0], cpu[0])
+                  and np.array_equal(card[1] > 0, cpu[1] > 0))
+    print(f'{label}, card vs CPU decode of {len(n_card)} images: valid '
+          f'detections {n_card.tolist()} card, {n_cpu.tolist()} CPU (same '
+          f'slots: {same_slots}); matched by category, max|dbox| '
+          f'{dbox:.3e} px (limit {DET_BOX_TOL}), max|dscore| {dscore:.3e} '
+          f'(limit {DET_SCORE_TOL}); card detections without a CPU match, '
+          f'per image: {missed} (limit 1 per image, at a tie)', flush=True)
+    if not (np.array_equal(n_card, n_cpu) and max(missed) <= 1
+            and n_card.sum() > 0):
+        raise AssertionError(f'{label}: card and CPU detections differ')
+
+
+def spy_cif_hr(port, fn):
+    """Run ``fn()`` keeping the inputs of every K1 call."""
+    captured = []
+    launch = port.cif_hr.cif_hr_accumulate
+
+    def spy(*args, **kwargs):
+        captured.append(([a.clone() for a in args], dict(kwargs)))
+        return launch(*args, **kwargs)
+
+    port.cif_hr.cif_hr_accumulate = spy
+    try:
+        fn()
+    finally:
+        port.cif_hr.cif_hr_accumulate = launch
+    return captured
+
+
+def detect_serve(port, card: str) -> dict:
+    """(b) The detection serve: sn2k16 with cocodet's CifDet head, bf16,
+    calibrated (``calibrate_det_head``), decoded with the seed threshold
+    ``DET_SEED_THRESHOLD``, 3 chained batches of 8 at 641 px
+    through ``Predictor`` with the counts set to 0 before and read after
+    (K1 once and K2 three times per batch, no host sync: the decode has no
+    fixpoint loop); the fields' shapes; ``DETECT_HELD`` images of the first
+    batch held to the CPU decode (``hold_dets``); peak memory less what the
+    earlier phases hold; then (a) K1 held to its plain version and timed
+    on the inputs the serve handed it."""
+    base = torch.cuda.memory_allocated()
+    metas = cocodet_metas(port)
+    torch.backends.cudnn.benchmark = True
+    predictor = port.Predictor(base_name='shufflenetv2k16', head_metas=metas,
+                               device='cuda', bf16=True, seed=0)
+    predictor.batch_size = SERVE_BATCH
+    predictor.long_edge = SERVE_EDGE
+    batches = random_batches(10)
+    x, _ = predictor.preprocess(batches[0])
+    print(f'detect: cocodet head calibrated on the first batch: '
+          f'{calibrate_det_head(predictor.model, metas[0], x)}; seed '
+          f'threshold {DET_SEED_THRESHOLD}', flush=True)
+    cls = port.decoder.CifDet
+    old_threshold, cls.seed_threshold = cls.seed_threshold, DET_SEED_THRESHOLD
+    try:
+        run = served_run(port, predictor, batches, 'detect served',
+                         capture=True)
+        fields, on_card = run['decoded']
+        held = [f[:DETECT_HELD] for f in fields]
+        cpu = cpu_det_decode(port, metas[0], held[0])
+    finally:
+        cls.seed_threshold = old_threshold
+    counts = run['counts']
+    want = dict(k1=SERVE_BATCHES, k1_cuda=2 * SERVE_BATCHES,
+                k2=SERVE_BATCHES * len(SN2K16_CHAINS),
+                k2_cuda=SERVE_BATCHES * KERNELS_PER_BLOCK * SN2K16_BLOCKS,
+                syncs=0)
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f'detect served: counts {counts}, want {want}')
+    check_field_shapes(fields, 'detect', ((80, 7),))
+    hold_dets([t[:DETECT_HELD] for t in on_card], cpu,
+              'detect served batch')
+    peak = counts['peak_gib'] - base / 2**30
+    print(f'detect served: host syncs per batch '
+          f'{counts["syncs"] / SERVE_BATCHES:.1f} (no fixpoint loop); peak '
+          f'device memory {peak:.2f} GiB over the {base / 2**30:.2f} GiB the '
+          f'earlier phases hold ({card})', flush=True)
+
+    args, kwargs = run['captured'][0]
+    side, hr_side = (SERVE_EDGE - 1) // 16 + 1, (SERVE_EDGE + 1) // 2
+    if tuple(args[0].shape) != (SERVE_BATCH, 80, side * side) or \
+            tuple(kwargs['out_hw']) != (hr_side, hr_side):
+        raise AssertionError(f'detect: K1 ran on {tuple(args[0].shape)} -> '
+                             f'{kwargs["out_hw"]}')
+    k1 = measure_cif_hr(port.cif_hr, 'detect cocodet F=80', args, kwargs)
+    k1['shape'] = (f'(B, F, N) {tuple(args[0].shape)} -> '
+                   f'{tuple(kwargs["out_hw"])}')
+    return dict(counts=counts, k1=k1, e2e=run['e2e'])
+
+
+def multi_task_train(tmp: str) -> None:
+    """(c1) ``python -m openpifpaf_tpu_torch.train --dataset toykp,cifar10
+    --basenet shufflenetv2k16`` for one epoch on the card: every logged
+    head loss finite (the heads without targets in a batch at 0), a val
+    line, and a checkpoint with the three heads."""
+    out = os.path.join(tmp, 'multi')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    start = time.perf_counter()
+    result = subprocess.run(
+        [sys.executable, '-m', 'openpifpaf_tpu_torch.train', '--epochs=1',
+         '--dataset=toykp,cifar10', '--basenet=shufflenetv2k16',
+         f'--batch-size={TRAIN_BATCH}', f'--toykp-image-size={MULTI_EDGE}',
+         f'--toykp-n-images={MULTI_IMAGES}',
+         f'--cifar10-n-synthetic={MULTI_IMAGES}', '--log-interval=1',
+         '--output', out],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    if result.returncode != 0:
+        raise AssertionError('multi-task train CLI failed:\n'
+                             f'{result.stderr[-3000:]}')
+    from openpifpaf_tpu_torch.models import checkpoint
+
+    heads = [(type(m).__name__, m.name)
+             for m in checkpoint.load(out + '.npz')[0]['head_metas']]
+    with open(out + '.log') as f:
+        lines = [json.loads(line) for line in f]
+    train = [l['head_losses'] for l in lines if l['type'] == 'train']
+    val = [l for l in lines if l['type'] == 'val-epoch']
+    print(f'multi-task train CLI (toykp,cifar10): exit 0 in '
+          f'{time.perf_counter() - start:.1f} s, {len(train)} train lines, '
+          f'head losses (cif, caf, cifdet: 3 each) of the first two '
+          f'{train[:2]}, val {val[0]["head_losses"] if val else None}; '
+          f'checkpoint heads {heads}', flush=True)
+    if (heads != [('Cif', 'cif'), ('Caf', 'caf'), ('CifDet', 'cifdet')]
+            or len(train) != 4 or not val
+            or not all(len(h) == 9 and np.isfinite(h).all()
+                       for h in train + [val[0]['head_losses']])
+            or not any(h[6] > 0 for h in train)
+            or not any(h[0] > 0 for h in train)):
+        raise AssertionError(f'multi-task train CLI: heads {heads}, log '
+                             f'{lines}')
+
+
+def three_head_checkpoint(port, path: str) -> dict:
+    """A three-head sn2k16 (toykp's CIF and CAF, cifar10's CifDet) with
+    seeded weights, the pose heads' biases shifted (``shift_head_biases``),
+    the CifDet head calibrated, saved as an npz checkpoint; and (a) K1's
+    inputs at cifar10's shape (F = 10 on the 5 x 5 grid of a 33 px image,
+    17 x 17 hr) captured from the model's prediction of 8 such images."""
+    metas = cifar10_three_head_metas(port)
+    model = port.models.factory('shufflenetv2k16', metas, device='cuda',
+                                seed=0)
+    shift_head_biases(model, metas[:2])
+    images = random_batches(11)[0]
+    predictor = port.Predictor(model=model, device='cuda')
+    x, _ = predictor.preprocess(images)
+    print(f'multi-task model: cifdet head calibrated: '
+          f'{calibrate_det_head(model, metas[2], x)}', flush=True)
+    port.models.checkpoint.save(
+        path, variables=port.models.to_jax_variables(
+            model.module.state_dict()),
+        head_metas=metas, basenet_name='shufflenetv2k16', base_stride=16)
+    predictor.long_edge = CIFAR10_EDGE
+    rng = np.random.default_rng(12)
+    small = [rng.integers(0, 256, (CIFAR10_EDGE, CIFAR10_EDGE, 3),
+                          dtype=np.uint8) for _ in range(SERVE_BATCH)]
+    captured = spy_cif_hr(port, lambda: predictor.batch(small))
+    cifar = [(a, kw) for a, kw in captured if a[0].shape[1] == 10]
+    if len(captured) != 2 or len(cifar) != 1 or \
+            tuple(cifar[0][1]['out_hw']) != (17, 17):
+        raise AssertionError(f'cifar10-size prediction ran K1 on '
+                             f'{[(tuple(a[0].shape), kw["out_hw"]) for a, kw in captured]}')
+    args, kwargs = cifar[0]
+    k1 = measure_cif_hr(port.cif_hr, 'detect cifar10 F=10', args, kwargs)
+    k1['shape'] = (f'(B, F, N) {tuple(args[0].shape)} -> '
+                   f'{tuple(kwargs["out_hw"])}')
+    return k1
+
+
+def predict_cli(tmp: str, label: str, paths, checkpoint: str, out: str,
+                extra) -> list:
+    """``python -m openpifpaf_tpu_torch.predict`` on ``paths``; returns each
+    image's json as (poses, boxes)."""
+    os.makedirs(out)
+    env = dict(os.environ, PYTHONPATH=REPO, NVIDIA_TF32_OVERRIDE='0')
+    start = time.perf_counter()
+    result = subprocess.run(
+        [sys.executable, '-m', 'openpifpaf_tpu_torch.predict', *paths,
+         f'--checkpoint={checkpoint}', f'--json-output={out}'] + extra,
+        cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+    if result.returncode != 0:
+        raise AssertionError(f'{label} predict CLI failed:\n'
+                             f'{result.stderr[-3000:]}')
+    jsons = []
+    for path in paths:
+        with open(os.path.join(out, os.path.basename(path)
+                               + '.predictions.json')) as f:
+            data = json.load(f)
+        jsons.append(([d for d in data if 'keypoints' in d],
+                      [d for d in data if 'keypoints' not in d]))
+    print(f'{label} predict CLI: exit 0 in '
+          f'{time.perf_counter() - start:.1f} s, (poses, boxes) per image '
+          f'{[(len(p), len(b)) for p, b in jsons]}', flush=True)
+    for poses, boxes in jsons:
+        values = [v for d in poses for v in d['keypoints']] + \
+            [v for d in poses + boxes for v in d['bbox'] + [d['score']]]
+        if not (poses and boxes and np.isfinite(values).all()):
+            raise AssertionError(f'{label} predict json: {len(poses)} '
+                                 f'poses, {len(boxes)} boxes')
+    return jsons
+
+
+def json_arrays(dicts, keys):
+    return [np.array([np.ravel(d[k]) for d in dicts]).reshape(len(dicts), -1)
+            if dicts else np.zeros((0, 1)) for k in keys]
+
+
+def hold_predict_jsons(card, cpu, label: str) -> None:
+    """The card's and the CPU's predict jsons of the same images, by (b)'s
+    rule at the json's resolution (0.01 px, 0.001 score): per image the
+    same number of poses and of boxes, every card pose but at most one
+    within ``JSON_XY_TOL`` of a CPU pose in every keypoint value, every
+    card box but at most one matched to a CPU box of its category within
+    ``JSON_XY_TOL`` px and ``JSON_SCORE_TOL``."""
+    worst = []
+    for (poses_c, boxes_c), (poses_h, boxes_h) in zip(card, cpu):
+        kp_c, = json_arrays(poses_c, ['keypoints'])
+        kp_h, = json_arrays(poses_h, ['keypoints'])
+        missed_poses = sum(
+            not (np.abs(kp_h - kp).max(1) <= JSON_XY_TOL).any()
+            for kp in kp_c) if len(kp_h) else len(kp_c)
+        dets = [(np.array([[d['category_id'] for d in b]]),
+                 np.array([[d['score'] for d in b]]),
+                 np.array([[d['bbox'] for d in b]]).reshape(1, -1, 4))
+                for b in (boxes_c, boxes_h)]
+        missed_boxes, _, _ = unmatched_dets(*dets, JSON_XY_TOL,
+                                            JSON_SCORE_TOL)
+        worst.append((len(poses_c), len(poses_h), missed_poses,
+                      len(boxes_c), len(boxes_h), missed_boxes[0]))
+    print(f'{label}: per image (card poses, CPU poses, card poses without '
+          f'a CPU pose within {JSON_XY_TOL}, card boxes, CPU boxes, card '
+          f'boxes without a CPU match): {worst} (limit 1 each)', flush=True)
+    if not all(pc == ph and bc == bh and mp <= 1 and mb <= 1
+               for pc, ph, mp, bc, bh, mb in worst):
+        raise AssertionError(f'{label}: card and CPU predictions differ')
+
+
+def multi_task_predict(port, tmp: str, checkpoint: str) -> None:
+    """(c2) The predict CLI on the calibrated three-head checkpoint: 8 PNGs
+    of 641 px on the card, each json with poses and boxes; then 2 PNGs of
+    ``MULTI_EDGE`` px on the card and on the CPU, f32 (``--no-bf16``, TF32
+    off by ``NVIDIA_TF32_OVERRIDE=0``; the CPU decode with the card's f32
+    CifHr profiles), held by ``hold_predict_jsons``."""
+    rng = np.random.default_rng(13)
+    folder = os.path.join(tmp, 'predict_images')
+    os.makedirs(folder)
+    big, small = [], []
+    for i in range(SERVE_BATCH):
+        big.append(os.path.join(folder, f'big{i}.png'))
+        port.image_io.write_png(big[-1], rng.integers(
+            0, 256, (SERVE_EDGE, SERVE_EDGE, 3), dtype=np.uint8))
+    for i, shape in enumerate([(MULTI_EDGE, 96, 3), (86, MULTI_EDGE, 3)]):
+        small.append(os.path.join(folder, f'small{i}.png'))
+        port.image_io.write_png(small[-1], rng.integers(0, 256, shape,
+                                                       dtype=np.uint8))
+    predict_cli(tmp, f'multi-task {SERVE_EDGE} px, card', big, checkpoint,
+                os.path.join(tmp, 'json_big'),
+                [f'--batch-size={SERVE_BATCH}', f'--long-edge={SERVE_EDGE}',
+                 f'--cifdet-seed-threshold={DET_SEED_THRESHOLD}'])
+    small_args = ['--batch-size=2', f'--long-edge={MULTI_EDGE}', '--no-bf16',
+                  f'--cifdet-seed-threshold={DET_SEED_THRESHOLD}']
+    card = predict_cli(tmp, f'multi-task {MULTI_EDGE} px, card', small,
+                       checkpoint, os.path.join(tmp, 'json_card'), small_args)
+    cpu = predict_cli(tmp, f'multi-task {MULTI_EDGE} px, CPU', small,
+                      checkpoint, os.path.join(tmp, 'json_cpu'),
+                      small_args + ['--device=cpu', '--cifhr-f32-profiles'])
+    hold_predict_jsons(card, cpu, f'multi-task predict at {MULTI_EDGE} px, '
+                                  f'card vs CPU')
+
+
+def detect_phase(port, card: str, tmp: str) -> dict:
+    """Detection: (b) the cocodet serve with (a) K1 at its inputs, (c) the
+    multi-task train CLI, the calibrated three-head checkpoint with (a) K1
+    at cifar10's shape, and the predict CLI on it."""
+    start = time.perf_counter()
+    served = detect_serve(port, card)
+    multi_task_train(tmp)
+    checkpoint = os.path.join(tmp, 'three_heads.npz')
+    k1_cifar10 = three_head_checkpoint(port, checkpoint)
+    multi_task_predict(port, tmp, checkpoint)
+    print(f'detect phase: {time.perf_counter() - start:.1f} s ({card})',
+          flush=True)
+    return dict(counts=served['counts'], k1=served['k1'],
+                k1_cifar10=k1_cifar10)
+
+
 class _Port:
     """The port's modules, imported after the card check."""
 
@@ -2593,6 +3029,7 @@ class _Port:
         from openpifpaf_tpu_torch.plugins import posetrack, toykp
         from openpifpaf_tpu_torch.plugins.coco import constants
         from openpifpaf_tpu_torch.plugins.wholebody import constants as wb
+        from openpifpaf_tpu_torch.predictor import Predictor
         self.decoder, self.headmeta, self.kernels, self.models, self.ops = \
             decoder, headmeta, kernels, models, ops
         self.cif_hr, self.common, self.constants = cif_hr, common, constants
@@ -2602,6 +3039,7 @@ class _Port:
         self.eval_mod, self.fused_shufflenet = eval_mod, fused_shufflenet
         self.wb = wb
         self.image_io, self.posetrack, self.video = image_io, posetrack, video
+        self.Predictor = Predictor
 
 
 def main() -> int:
@@ -2679,8 +3117,12 @@ def main() -> int:
         wholebody = wholebody_phase(port, card, tmp)
         phase('tracking')
         tracked = tracking_phase(port, card, tmp)
+        phase('detect')
+        detected = detect_phase(port, card, tmp)
     max_err = max([max_err, wholebody['k1']['max_abs_err'],
-                   tracked['k1']['max_abs_err']]
+                   tracked['k1']['max_abs_err'],
+                   detected['k1']['max_abs_err'],
+                   detected['k1_cifar10']['max_abs_err']]
                   + [r['max_abs_err'] for kind, r in evaluated['checks']
                      if kind == 'cif_hr'])
     k2_err = max([k2_err, wholebody['k2']['max_abs_err'],
@@ -2706,6 +3148,9 @@ def main() -> int:
         'wholebody': at_new_shape(wholebody['k1']),
         'tracking_launches': tracked['counts']['k1'],
         'tracking': at_new_shape(tracked['k1']),
+        'detect_launches': detected['counts']['k1'],
+        'detect': at_new_shape(detected['k1']),
+        'detect_cifar10': at_new_shape(detected['k1_cifar10']),
         'max_abs_err': max_err, 'max_abs_diff': max_err,
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
@@ -2721,6 +3166,7 @@ def main() -> int:
         'wholebody': at_new_shape(wholebody['k2']),
         'tracking_launches': tracked['counts']['k2'],
         'tracking': at_new_shape(tracked['k2']),
+        'detect_launches': detected['counts']['k2'],
         'max_abs_err': k2_err, 'max_abs_diff': k2_err,
         'ms': k2_main['ms'], 'plain_ms': k2_main['plain_ms'],
         'bound_ms': k2_main['bound_ms'], 'bound_by': k2_main['bound_by'],

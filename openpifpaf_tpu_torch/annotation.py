@@ -1,10 +1,11 @@
-"""In-memory pose annotation objects (numpy).
+"""In-memory pose and detection annotation objects (numpy).
 
-Port copy of ``openpifpaf_tpu/annotation.py`` (the ``Annotation`` class —
-the only annotation type the CifCaf predict path produces).  Reference
-parity: ``src/openpifpaf/annotation.py`` — ``Annotation`` holds a ``(K, 3)``
-xyv array plus per-joint scales, computes a weighted score and emits
-COCO-format ``json_data()`` (coordinates rounded to 2 decimals).
+Port copy of ``openpifpaf_tpu/annotation.py``.  Reference parity:
+``src/openpifpaf/annotation.py`` — ``Annotation`` holds a ``(K, 3)`` xyv
+array plus per-joint scales, computes a weighted score and emits
+COCO-format ``json_data()`` (coordinates rounded to 2 decimals);
+``AnnotationDet`` is a decoded box, ``AnnotationCrowd`` a crowd region of
+the ground truth.
 """
 
 from __future__ import annotations
@@ -14,7 +15,32 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 
-class Annotation:
+class Base:
+    """Common interface for annotation types."""
+
+    def json_data(self):
+        raise NotImplementedError
+
+    def inverse_transform(self, meta):
+        raise NotImplementedError
+
+
+def _inverse_transform_bbox(bbox, meta) -> np.ndarray:
+    """(x, y, w, h) back to the original image: undo offset and scale, then
+    mirror on the original canvas when the image was flipped."""
+    bbox = np.array(bbox, dtype=np.float32)
+    bbox[:2] += np.asarray(meta['offset'], dtype=np.float32)
+    bbox[0] /= meta['scale'][0]
+    bbox[1] /= meta['scale'][1]
+    bbox[2] /= meta['scale'][0]
+    bbox[3] /= meta['scale'][1]
+    if meta.get('hflip', False):
+        w = meta.get('original_width_height', meta['width_height'])[0]
+        bbox[0] = -(bbox[0] + bbox[2]) + (w - 1)
+    return bbox
+
+
+class Annotation(Base):
     """A single decoded pose.
 
     ``data`` is a ``(K, 3)`` float array of (x, y, v) per keypoint where v is
@@ -125,3 +151,73 @@ class Annotation:
         return (f'Annotation(category_id={self.category_id}, '
                 f'score={self.score:.3f}, '
                 f'n_visible={int((self.data[:, 2] > 0).sum())})')
+
+
+class AnnotationDet(Base):
+    """A single decoded detection box, (x, y, w, h) in pixels."""
+
+    def __init__(self, categories: Sequence[str]):
+        self.categories = list(categories)
+        self.category_id: Optional[int] = None
+        self.score: float = 0.0
+        self.bbox: Optional[np.ndarray] = None
+
+    def set(self, category_id: int, score: float, bbox) -> 'AnnotationDet':
+        self.category_id = int(category_id)
+        self.score = float(score)
+        self.bbox = np.asarray(bbox, dtype=np.float32)
+        return self
+
+    @property
+    def category(self) -> str:
+        return self.categories[self.category_id - 1]
+
+    def json_data(self) -> dict:
+        return {
+            'category_id': self.category_id,
+            'category': self.category,
+            'score': max(0.001, round(float(self.score), 3)),
+            'bbox': [round(float(c), 2) for c in self.bbox],
+        }
+
+    def inverse_transform(self, meta) -> 'AnnotationDet':
+        return AnnotationDet(self.categories).set(
+            self.category_id, self.score,
+            _inverse_transform_bbox(self.bbox, meta))
+
+    def __repr__(self):
+        return (f'AnnotationDet(category_id={self.category_id}, '
+                f'score={self.score:.3f})')
+
+
+class AnnotationCrowd(Base):
+    """A crowd region of the ground truth (never decoded)."""
+
+    def __init__(self, categories: Sequence[str]):
+        self.categories = list(categories)
+        self.category_id: Optional[int] = None
+        self.bbox: Optional[np.ndarray] = None
+
+    def set(self, category_id: int, bbox) -> 'AnnotationCrowd':
+        self.category_id = int(category_id)
+        self.bbox = np.asarray(bbox, dtype=np.float32)
+        return self
+
+    @property
+    def category(self) -> str:
+        return self.categories[self.category_id - 1]
+
+    def json_data(self) -> dict:
+        return {
+            'category_id': self.category_id,
+            'category': self.category,
+            'iscrowd': 1,
+            'bbox': [round(float(c), 2) for c in self.bbox],
+        }
+
+    def inverse_transform(self, meta) -> 'AnnotationCrowd':
+        return AnnotationCrowd(self.categories).set(
+            self.category_id, _inverse_transform_bbox(self.bbox, meta))
+
+    def __repr__(self):
+        return f'AnnotationCrowd(category_id={self.category_id})'

@@ -1,13 +1,17 @@
-"""Datasets: the DataModule contract, the registry and the collates."""
+"""Datasets: the DataModule contract, the registry, multi-dataset training,
+the collates and the image-file dataset of the predictor."""
 
 from .collate import (collate_images_anns_meta, collate_images_targets_meta,
                       collate_tracking_images_anns_meta,
                       collate_tracking_images_targets_meta)
 from .factory import DATAMODULES, cli, configure, factory
 from .loader_with_reset import LoaderWithReset
+from .image_list import ImageList
 from .module import DataModule
+from .multimodule import MultiDataModule
 
 __all__ = ['collate_images_anns_meta', 'collate_images_targets_meta',
            'collate_tracking_images_anns_meta',
            'collate_tracking_images_targets_meta', 'DATAMODULES', 'cli',
-           'configure', 'factory', 'LoaderWithReset', 'DataModule']
+           'configure', 'factory', 'ImageList', 'LoaderWithReset',
+           'DataModule', 'MultiDataModule']

@@ -1,8 +1,9 @@
 """Dataset registry and CLI.
 
 Port of ``openpifpaf_tpu/datasets/factory.py``: the ``DATAMODULES``
-registry (filled by ``plugins.register()``; the port has ``toykp``),
-``factory(name)`` and the ``--dataset`` / loader CLI flags.
+registry (filled by ``plugins.register()``), ``factory(name)`` (names
+joined by commas make a ``MultiDataModule``) and the ``--dataset`` /
+loader CLI flags.
 """
 
 from __future__ import annotations
@@ -16,6 +17,12 @@ DATAMODULES: Dict[str, Type[DataModule]] = {}
 
 
 def factory(dataset_name: str) -> DataModule:
+    if ',' in dataset_name:
+        # multi-dataset training: --dataset=toykp,cifar10
+        from .multimodule import MultiDataModule  # pylint: disable=import-outside-toplevel
+
+        return MultiDataModule([factory(n.strip())
+                                for n in dataset_name.split(',')])
     if dataset_name not in DATAMODULES:
         raise ValueError(
             f'dataset {dataset_name!r} unknown; registered: {sorted(DATAMODULES)}')

@@ -160,7 +160,8 @@ class CifCaf(Decoder):
 
     def config_for(self, image_hw: Tuple[int, int]) -> CifCafConfig:
         """The decode configuration; on the card the CifHr profiles are
-        f32 (the kernel's), on the CPU bf16-rounded as in the JAX default."""
+        f32 (the kernel's), on the CPU bf16-rounded as in the JAX default
+        unless ``--cifhr-f32-profiles``."""
         return CifCafConfig(
             stride=self.cif_meta.stride,
             image_hw=tuple(image_hw),
@@ -169,7 +170,7 @@ class CifCaf(Decoder):
                 spacing=self.hr_spacing,
                 min_scale=self.cif_meta.decoder_min_scale,
                 max_active=self.cif_hr_max_active,
-                profile_bf16=self.device.type == 'cpu'),
+                profile_bf16=self.profile_bf16(self.device)),
             seeds=seeds.SeedsConfig(
                 threshold=self.seed_threshold,
                 max_seeds=self.max_seeds),

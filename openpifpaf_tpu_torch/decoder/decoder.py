@@ -15,6 +15,14 @@ class Decoder:
     """Base class for field decoders."""
 
     profile = None  # output file for a cProfile of decode (--profile-decoder)
+    # the CPU decode's CifHr profiles: bf16-rounded as in the JAX package,
+    # or f32 as the card's kernel computes them (--cifhr-f32-profiles)
+    f32_profiles = False
+
+    def profile_bf16(self, device) -> bool:
+        """Whether the CifHr profiles of a decode on ``device`` round to
+        bf16: on the CPU unless ``f32_profiles``; never on the card."""
+        return device.type == 'cpu' and not self.f32_profiles
 
     @classmethod
     def cli(cls, parser: argparse.ArgumentParser) -> None:

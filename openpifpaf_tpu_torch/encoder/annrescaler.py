@@ -42,7 +42,10 @@ class AnnRescaler:
         for ann in anns:
             if not getattr(ann, 'iscrowd', False):
                 continue
-            bbox = ann.bbox()
+            bbox = ann.bbox() if callable(getattr(ann, 'bbox', None)) \
+                else getattr(ann, 'bbox', None)
+            if bbox is None:
+                continue
             x0 = int(np.floor((bbox[0] - crowd_margin) / self.stride))
             y0 = int(np.floor((bbox[1] - crowd_margin) / self.stride))
             x1 = int(np.ceil((bbox[0] + bbox[2] + crowd_margin) / self.stride))

@@ -1,7 +1,7 @@
 """Encoder factory and the Encoders transform.
 
-Port of ``openpifpaf_tpu/encoder/factory.py`` (``:21-85``) for the CIF, CAF
-and TCAF heads.  ``Encoders`` is applied as the final training transform,
+Port of ``openpifpaf_tpu/encoder/factory.py`` (``:21-85``) for the CIF, CAF,
+TCAF and CifDet heads.  ``Encoders`` is applied as the final training transform,
 turning (image, anns, meta) into (image, per-head targets, meta);
 ``TrackingEncoders`` does it for frame pairs.
 """
@@ -15,6 +15,7 @@ import numpy as np
 
 from .caf import CafEncoder
 from .cif import CifEncoder
+from .cifdet import CifDetEncoder
 from .tcaf import TcafEncoder
 from .. import headmeta
 
@@ -26,6 +27,8 @@ def factory_head(meta: headmeta.Base):
         return CafEncoder(meta)
     if isinstance(meta, headmeta.Tcaf):
         return TcafEncoder(meta)
+    if isinstance(meta, headmeta.CifDet):
+        return CifDetEncoder(meta)
     raise ValueError(f'no encoder for head meta {type(meta).__name__}')
 
 

@@ -24,7 +24,7 @@ import os
 import sys
 import time
 
-from . import datasets, decoder, plugins
+from . import datasets, decoder, logger, plugins
 from .predictor import Predictor
 
 LOG = logging.getLogger(__name__)
@@ -75,18 +75,12 @@ class Evaluator:
                  variants)
         loaders = [self.datamodule.eval_loader(long_edge=le, hflip=hf)
                    for le, hf in variants]
-        sigmas = getattr(predictor.model.head_metas[0], 'sigmas', None)
         loader_iters = self._warm([iter(loader) for loader in loaders])
 
         total_start = time.perf_counter()
-        # zip the per-variant iterators: results stream image by image,
-        # each variant buffers at most one decoded batch
-        iterators = [predictor.dataset_loader(it) for it in loader_iters]
-        for results in zip(*iterators):
-            ann_lists = [r[0] for r in results]
-            _, gt, image_meta = results[reference_index]
-            merged = predictor.merge_annotations(
-                ann_lists, sigmas=sigmas, reference_index=reference_index)
+        for merged, gt, image_meta in predictor.merged_variants(
+                [predictor.dataset_loader(it) for it in loader_iters],
+                reference_index):
             for metric in self.metrics:
                 metric.accumulate(merged, image_meta, ground_truth=gt)
             self.n_images += 1
@@ -129,10 +123,7 @@ def cli(argv=None) -> argparse.Namespace:
                              'without CUDA)')
     parser.add_argument('--seed', default=0, type=int,
                         help='seeds the weights of a fresh --basenet model')
-    parser.add_argument('--debug', default=False, action='store_true',
-                        help='print debug messages')
-    parser.add_argument('-q', '--quiet', default=False, action='store_true',
-                        help='only warnings and errors')
+    logger.cli(parser)
     group = parser.add_argument_group('network configuration')
     group.add_argument('--checkpoint', default=None,
                        help='npz checkpoint to evaluate')
@@ -149,13 +140,7 @@ def cli(argv=None) -> argparse.Namespace:
 
     if not args.checkpoint and not args.basenet:
         parser.error('either --checkpoint or --basenet must be given')
-    level = logging.INFO
-    if args.debug:
-        level = logging.DEBUG
-    elif args.quiet:
-        level = logging.WARNING
-    logging.basicConfig(stream=sys.stdout, level=level,
-                        format='%(levelname)s:%(name)s:%(message)s')
+    logger.configure(args)
     decoder.configure(args)
     Predictor.configure(args)
     datasets.configure(args)

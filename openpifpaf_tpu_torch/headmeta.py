@@ -14,8 +14,8 @@ Port copy of ``openpifpaf_tpu/headmeta.py``: the PyTorch package keeps its
 own copy so that it imports nothing of the JAX package.  It holds the
 metas of the ported CifCaf path, ``Caf.concatenate`` (the sparse and dense
 skeletons of ``--dense-connections``) included, and ``Tcaf``, the temporal
-association head of the tracking models; ``CifDet`` comes with its
-decoder.
+association head of the tracking models, and ``CifDet``, the detection
+head.
 """
 
 from __future__ import annotations
@@ -150,6 +150,31 @@ class Caf(Base):
                       if meta.decoder_confidence_scales is not None
                       else [1.0] * len(meta.skeleton))]
         return concatenated
+
+
+@dataclasses.dataclass
+class CifDet(Base):
+    """Composite detection field metadata (object detection variant).
+
+    Reference: ``headmeta.py:~110``.  Each cell predicts, per category:
+    (confidence, center offset x/y, box width and height as a second
+    vector), 1 + 3 * 2 = 7 components.
+    """
+
+    categories: List[str] = None
+
+    training_weights: Optional[List[float]] = None
+
+    n_confidences: ClassVar[int] = 1
+    n_vectors: ClassVar[int] = 2   # center offset + (w, h) as a second vector
+    n_scales: ClassVar[int] = 0
+
+    vector_offsets = [True, False]
+    decoder_min_scale = 0.0
+
+    @property
+    def n_fields(self) -> int:
+        return len(self.categories)
 
 
 @dataclasses.dataclass

@@ -3,7 +3,8 @@
 Port of ``openpifpaf_tpu/losses/multi_head.py``: weighted sum with
 ``--lambdas``; with ``--auto-tune-mtl`` the trainer holds learnable
 log-sigmas (an ``nn.Parameter``, Kendall et al. task-uncertainty
-weighting) and passes them in.
+weighting) and passes them in.  A head whose target is ``None`` (a
+multi-dataset batch from another data module) gives zero components.
 """
 
 from __future__ import annotations
@@ -41,7 +42,13 @@ class MultiHeadLoss:
         """
         comps = []
         for loss_fn, field, target in zip(self.losses, fields, targets):
-            comps.extend(loss_fn(field, target))
+            if target is None:
+                # multi-dataset training: this batch carries no targets for
+                # this head (datasets/multimodule.py pads with None)
+                comps.extend([torch.zeros((), device=field.device)]
+                             * loss_fn.n_components)
+            else:
+                comps.extend(loss_fn(field, target))
         weighted = [lam * c for lam, c in zip(self.lambdas, comps)]
         if log_sigmas is not None:
             weighted = [torch.exp(-2.0 * s) * wl + s

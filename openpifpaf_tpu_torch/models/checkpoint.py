@@ -21,6 +21,7 @@ from .. import headmeta as headmeta_mod
 _HEADMETA_TYPES = {
     'Cif': headmeta_mod.Cif,
     'Caf': headmeta_mod.Caf,
+    'CifDet': headmeta_mod.CifDet,
     'Tcaf': headmeta_mod.Tcaf,
 }
 

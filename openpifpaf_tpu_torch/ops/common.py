@@ -11,6 +11,8 @@ from typing import Callable, Tuple
 
 import torch
 
+from .. import debug_checks
+
 # Host synchronizations of the decode: each iteration of a fixpoint loop
 # reads its convergence flag back to the host (``while_loop`` below).
 HOST_SYNCS = 0
@@ -52,17 +54,26 @@ def gather_field(grids: torch.Tensor, f: torch.Tensor, x: torch.Tensor,
 
     grids: (B, F, Hg, Wg); f, x, y: (B, ...) broadcast-compatible -> (B, ...).
     Out-of-bounds coordinates are clamped to the grid (the JAX version's
-    clipped reads).
+    clipped reads).  Under ``--debug-checks`` non-finite coordinates and
+    field indices outside [0, F) raise.
     """
     b, nf, hg, wg = grids.shape
+    # a NaN coordinate reads a NaN value; raise under --debug-checks
+    debug_checks.check_finite(x, 'gather_field: non-finite x')
+    debug_checks.check_finite(y, 'gather_field: non-finite y')
+    if debug_checks.enabled():
+        debug_checks.check((f >= 0) & (f < nf),
+                           'gather_field: field index out of bounds')
     gx = torch.clamp(x / spacing, 0.0, wg - 1.0)
     gy = torch.clamp(y / spacing, 0.0, hg - 1.0)
     x0f = torch.floor(gx)
     y0f = torch.floor(gy)
     fx = gx - x0f
     fy = gy - y0f
-    x0 = x0f.long()
-    y0 = y0f.long()
+    # a NaN coordinate survives the clamp above; its index is clamped here,
+    # as JAX clamps out-of-bounds gather indices (the value stays NaN)
+    x0 = torch.clamp(x0f.long(), 0, wg - 1)
+    y0 = torch.clamp(y0f.long(), 0, hg - 1)
     x1 = torch.clamp(x0 + 1, max=wg - 1)
     y1 = torch.clamp(y0 + 1, max=hg - 1)
     bi = torch.arange(b, device=grids.device).view(b, *([1] * (x.dim() - 1)))

@@ -1,0 +1,99 @@
+"""Predict CLI of the PyTorch port: image files -> annotations as json.
+
+Port of ``openpifpaf_tpu/predict.py:25-96``.  Reference parity:
+``src/openpifpaf/predict.py:~30``: glob the images, run the ``Predictor``
+and write one ``<image>.predictions.json`` per image, poses and boxes
+mixed, with ``--json-output`` (a file, a directory, or beside the image
+when given without a value).  Images are read by ``image_io``: PNG always,
+JPEG and BMP where PIL is importable.  Prediction runs on the card unless
+``--device cpu`` is given; without CUDA it raises.  Rendered image output
+(``-o/--image-output``) needs the visualizers, which are not ported.
+
+Usage::
+
+    python -m openpifpaf_tpu_torch.predict image.png \\
+        --checkpoint outputs/model.npz --json-output out/
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import logging
+import os
+import sys
+
+from . import decoder, logger
+from .predictor import Predictor
+
+LOG = logging.getLogger(__name__)
+
+
+def cli(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        prog='python -m openpifpaf_tpu_torch.predict',
+        description=__doc__,
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    parser.add_argument('images', nargs='*', help='input images')
+    parser.add_argument('--glob', default=None,
+                        help='glob expression for input images')
+    parser.add_argument('--json-output', default=None, nargs='?',
+                        const=True, help='json output file or directory')
+    parser.add_argument('--batch-size', dest='predictor_batch_size',
+                        default=Predictor.batch_size, type=int,
+                        help='prediction batch size')
+    parser.add_argument('--device', default=None,
+                        help='torch device (default: the card; raises '
+                             'without CUDA)')
+    logger.cli(parser)
+    group = parser.add_argument_group('network configuration')
+    group.add_argument('--checkpoint', default=None,
+                       help='npz checkpoint (the JAX package\'s format)')
+    group.add_argument('--no-bf16', dest='bf16', default=True,
+                       action='store_false',
+                       help='compute in float32 instead of bfloat16')
+    decoder.cli(parser)
+    Predictor.cli(parser)
+    args = parser.parse_args(argv)
+
+    if not args.checkpoint:
+        parser.error('--checkpoint must be given')
+    logger.configure(args)
+    decoder.configure(args)
+    Predictor.configure(args)
+    return args
+
+
+def out_name(arg, in_name: str, default_extension: str) -> str:
+    if arg is True:
+        return in_name + default_extension
+    if os.path.isdir(arg):
+        return os.path.join(arg, os.path.basename(in_name)) + default_extension
+    return arg
+
+
+def main(argv=None) -> int:
+    args = cli(argv)
+    image_paths = list(args.images)
+    if args.glob:
+        image_paths += sorted(glob.glob(args.glob))
+    if not image_paths:
+        LOG.error('no image files given')
+        return 1
+
+    predictor = Predictor(checkpoint=args.checkpoint, device=args.device,
+                          bf16=args.bf16)
+    for pred, _, meta in predictor.images(image_paths):
+        LOG.info('%s: %d annotations', meta['file_name'], len(pred))
+        if args.json_output is not None:
+            json_out_name = out_name(args.json_output, meta['file_name'],
+                                     '.predictions.json')
+            with open(json_out_name, 'w') as f:
+                json.dump([ann.json_data() for ann in pred], f)
+            LOG.info('json output = %s', json_out_name)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -8,8 +8,11 @@ decode on the same device, and map the annotations back to the original
 image coordinates.  ``dataset``/``dataset_loader`` do the same for a data
 module's eval batches (images already preprocessed by
 ``preprocess_factory``'s transforms), and ``merge_annotations`` with
-``multiscale_variants`` make the multi-scale eval.  ``images(paths)``
-(no image reader without PIL) and data-parallel eval are not ported.
+``multiscale_variants`` make the multi-scale eval.  ``images(paths)`` and
+``image(path)`` read image files (``datasets.ImageList``: PNG always, JPEG
+and BMP where PIL is importable) through the same eval transforms, at one
+scale or, with ``multi_scale``, at several (``images_multiscale``).
+Data-parallel eval is not ported.
 """
 
 from __future__ import annotations
@@ -258,6 +261,63 @@ class Predictor:
         variant_keys = [(long_edge, hflip) for long_edge in long_edges
                         for hflip in hflips]
         return variant_keys, variant_keys.index((max(long_edges), False))
+
+    def images(self, paths: Sequence[str]) -> Iterator[Tuple[List, List, dict]]:
+        """Yields ``(predictions, ground_truth=[], meta)`` per image file,
+        in ``predictor_batch_size`` batches; multi-scale when
+        ``multi_scale`` is set."""
+        if self.multi_scale:
+            yield from self.images_multiscale(paths)
+            return
+        yield from self.dataset(datasets.ImageList(paths,
+                                                   self.preprocess_factory()))
+
+    def image(self, path: str):
+        return next(iter(self.images([path])))
+
+    def images_multiscale(self, paths: Sequence[str],
+                          long_edges: Optional[Sequence[int]] = None
+                          ) -> Iterator[Tuple[List, List, dict]]:
+        """Predict each image at several scales (and hflips) and merge.
+
+        Yields ``(merged_predictions, gt, meta_of_reference_scale)`` per
+        image.  The variants are ``multiscale_variants``'s, or
+        ``long_edges`` with their hflips; each variant's predictions are in
+        the original image coordinates before the OKS merge
+        (``merged_variants``)."""
+        if long_edges is not None:
+            hflips = (False, True) if self.multi_scale_hflip else (False,)
+            variant_keys = [(le, hf) for le in sorted(long_edges)
+                            for hf in hflips]
+            reference_index = variant_keys.index((max(long_edges), False))
+        else:
+            variant_keys, reference_index = self.multiscale_variants()
+
+        yield from self.merged_variants(
+            [self.dataset(datasets.ImageList(
+                paths, self.preprocess_factory(long_edge=long_edge,
+                                               hflip=hflip)),
+                json_data=False)
+             for long_edge, hflip in variant_keys],
+            reference_index, json_data=self.json_data)
+
+    def merged_variants(self, iterators, reference_index: int, *,
+                        json_data: bool = False
+                        ) -> Iterator[Tuple[List, List, dict]]:
+        """Zip per-variant ``(predictions, gt, meta)`` iterators (each
+        variant's annotations in the original image coordinates) and yield
+        per image the merged predictions with the reference variant's
+        ground truth and meta.  Results stream image by image: each
+        variant buffers at most one decoded batch."""
+        sigmas = getattr(self.model.head_metas[0], 'sigmas', None)
+        for results in zip(*iterators):
+            _, gt, meta = results[reference_index]
+            merged = self.merge_annotations(
+                [r[0] for r in results], sigmas=sigmas,
+                reference_index=reference_index)
+            if json_data:
+                merged = [ann.json_data() for ann in merged]
+            yield merged, gt, meta
 
     def numpy_images(self, images) -> Iterator[Tuple[List, List, dict]]:
         """Yields ``(predictions, ground_truth=[], meta)`` per image, as

@@ -22,7 +22,7 @@ import sys
 
 import torch
 
-from . import datasets, encoder, losses, models, plugins
+from . import datasets, encoder, logger, losses, models, plugins
 from .device import resolve_device
 from .training import OptimizeFactory, Trainer
 
@@ -56,10 +56,10 @@ def cli(argv=None) -> argparse.Namespace:
     parser.add_argument('--device', default=None,
                         help='torch device (default: the card; raises '
                              'without CUDA)')
-    parser.add_argument('--debug', default=False, action='store_true')
     for flag, what in NOT_PORTED.items():
         parser.add_argument(f'--{flag}', default=False, action='store_true',
                             help=f'{what}: not ported, refused')
+    logger.cli(parser)
     group = parser.add_argument_group('network configuration')
     group.add_argument('--checkpoint', default=None,
                        help='npz checkpoint to start from')
@@ -82,7 +82,7 @@ def cli(argv=None) -> argparse.Namespace:
                      + ', '.join(refused))
     if not args.checkpoint and not args.basenet:
         parser.error('either --checkpoint or --basenet must be given')
-    logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO)
+    logger.configure(args)
     losses.Factory.configure(args)
     encoder.configure(args)
     OptimizeFactory.configure(args)

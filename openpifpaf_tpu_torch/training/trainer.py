@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from .optimize import OptimizeFactory
+from .. import debug_checks
 from ..models import checkpoint as checkpoint_mod
 from ..models.from_jax import from_jax_variables, to_jax_variables
 
@@ -119,8 +120,11 @@ class Trainer:
 
     # -- steps ----------------------------------------------------------
     def _to_device(self, images, targets):
+        """The batch on the device; a ``None`` target (a head that this
+        multi-dataset batch has no data for) stays ``None``."""
         images = images.to(self.device, torch.float32, non_blocking=True)
-        targets = [{k: v.to(self.device, non_blocking=True)
+        targets = [None if t is None else
+                   {k: v.to(self.device, non_blocking=True)
                     for k, v in t.items()} for t in targets]
         return images, targets
 
@@ -139,8 +143,14 @@ class Trainer:
                     m.eval()
         total, comps = self.loss_fn(self._forward(images), targets,
                                     log_sigmas=self.log_sigmas)
+        debug_checks.check_finite(total, 'non-finite training loss')
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        for p in self.opt_params:
+            # a head without targets in this batch has zero gradients, as
+            # in JAX, so weight decay and momentum still update it
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         self.optimize_factory.clip_gradients(self.opt_params)
         self.optimizer.step()
         self.scheduler.step()
@@ -161,6 +171,7 @@ class Trainer:
         images, targets = self._to_device(images, targets)
         total, comps = self.loss_fn(self._forward(images), targets,
                                     log_sigmas=self.log_sigmas)
+        debug_checks.check_finite(total, 'non-finite validation loss')
         return total, torch.stack(comps)
 
     # -- logging --------------------------------------------------------

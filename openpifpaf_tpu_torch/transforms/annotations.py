@@ -1,7 +1,9 @@
 """COCO-json -> Annotation normalization.
 
 Port of ``openpifpaf_tpu/transforms/annotations.py`` (``NormalizeAnnotations``)
-for keypoint annotations.
+for keypoint annotations and for dicts that carry only a box (their
+keypoints stay zero; ``Cifar10`` passes no keypoint names, so its boxes get
+``(0, 3)`` keypoint data).  Annotation objects pass through.
 """
 
 from __future__ import annotations
@@ -9,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from .base import Preprocess
-from ..annotation import Annotation
+from ..annotation import Annotation, Base as AnnotationBase
 
 
 class NormalizeAnnotations(Preprocess):
@@ -26,7 +28,7 @@ class NormalizeAnnotations(Preprocess):
         meta = Preprocess.init_meta(image, meta)
         out = []
         for raw in anns:
-            if isinstance(raw, Annotation):
+            if isinstance(raw, AnnotationBase):
                 out.append(raw)
                 continue
             ann = Annotation(self.keypoints, self.skeleton,

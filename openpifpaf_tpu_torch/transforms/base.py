@@ -38,9 +38,17 @@ class Preprocess:
         return meta
 
 
+def is_box_only(ann) -> bool:
+    """AnnotationDet and AnnotationCrowd carry a box and no keypoints."""
+    return getattr(ann, 'data', None) is None
+
+
 def rescale_annotations(anns: List, x_scale: float, y_scale: float):
     scale4 = np.array([x_scale, y_scale, x_scale, y_scale])
     for ann in anns:
+        if is_box_only(ann):
+            ann.bbox = np.asarray(ann.bbox, np.float32) * scale4
+            continue
         ann.data[:, 0] *= x_scale
         ann.data[:, 1] *= y_scale
         ann.joint_scales *= (x_scale + y_scale) / 2.0
@@ -52,6 +60,9 @@ def rescale_annotations(anns: List, x_scale: float, y_scale: float):
 def translate_annotations(anns: List, dx: float, dy: float):
     shift4 = np.array([dx, dy, 0.0, 0.0])
     for ann in anns:
+        if is_box_only(ann):
+            ann.bbox = np.asarray(ann.bbox, np.float32) + shift4
+            continue
         ann.data[:, 0] += dx
         ann.data[:, 1] += dy
         if ann.fixed_bbox is not None:

@@ -1,7 +1,7 @@
 """Horizontal flip with keypoint-name swapping.
 
-Port of ``openpifpaf_tpu/transforms/hflip.py`` on (3, H, W) tensors, with
-``hflip_map_from_keypoints`` (the swap table multi-scale eval derives from
+Port of ``openpifpaf_tpu/transforms/hflip.py`` on (3, H, W) tensors
+(box-only annotations mirror their box), with ``hflip_map_from_keypoints`` (the swap table multi-scale eval derives from
 the head's keypoint names).
 """
 
@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .base import Preprocess
+from .base import Preprocess, is_box_only
 
 
 class HorizontalSwap:
@@ -51,6 +51,12 @@ def hflip_map_from_keypoints(keypoints):
     return table
 
 
+def _mirror(bbox, w: int) -> np.ndarray:
+    bb = np.array(bbox, np.float32)
+    bb[0] = -(bb[0] + bb[2]) + (w - 1)
+    return bb
+
+
 class HFlip(Preprocess):
     def __init__(self, keypoints, hflip_map):
         self.swap = HorizontalSwap(keypoints, hflip_map)
@@ -60,13 +66,14 @@ class HFlip(Preprocess):
         w = image.shape[-1]
         image = image.flip(-1)
         for ann in anns:
+            if is_box_only(ann):
+                ann.bbox = _mirror(ann.bbox, w)
+                continue
             ann.data[:, 0] = -ann.data[:, 0] + (w - 1)
             if len(ann.data) == len(self.swap.perm):
                 ann.data = self.swap(ann.data)
             if ann.fixed_bbox is not None:
-                bb = np.asarray(ann.fixed_bbox, np.float32)
-                bb[0] = -(bb[0] + bb[2]) + (w - 1)
-                ann.fixed_bbox = bb
+                ann.fixed_bbox = _mirror(ann.fixed_bbox, w)
         va = meta['valid_area']
         meta['valid_area'] = np.array(
             (w - 1 - (va[0] + va[2]), va[1], va[2], va[3]))

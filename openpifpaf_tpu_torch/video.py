@@ -32,7 +32,7 @@ import time
 import torch
 
 from . import decoder as decoder_mod
-from . import headmeta, models, transforms
+from . import headmeta, logger, models, transforms
 from .decoder.pose_similarity import PoseSimilarity
 from .decoder.tracking_pose import TrackingPose
 from .image_io import SUFFIXES, read_image
@@ -151,8 +151,7 @@ def cli(argv=None) -> argparse.Namespace:
                              'without CUDA)')
     parser.add_argument('--seed', default=0, type=int,
                         help='seeds the weights of a fresh --basenet model')
-    parser.add_argument('--debug', default=False, action='store_true')
-    parser.add_argument('-q', '--quiet', default=False, action='store_true')
+    logger.cli(parser)
     group = parser.add_argument_group('network configuration')
     group.add_argument('--checkpoint', default=None,
                        help='npz checkpoint (the JAX package\'s format)')
@@ -174,13 +173,7 @@ def cli(argv=None) -> argparse.Namespace:
                 'the PyTorch package yet')
     if not args.checkpoint and not args.basenet:
         parser.error('either --checkpoint or --basenet must be given')
-    level = logging.INFO
-    if args.debug:
-        level = logging.DEBUG
-    elif args.quiet:
-        level = logging.WARNING
-    logging.basicConfig(stream=sys.stdout, level=level,
-                        format='%(levelname)s:%(name)s:%(message)s')
+    logger.configure(args)
     decoder_mod.configure(args)
     return args
 

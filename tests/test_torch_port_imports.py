@@ -3,8 +3,9 @@
 - ``openpifpaf_tpu_torch`` and ``chip_smoke.py`` import no ``jax``,
   ``flax``, ``optax``, ``PIL`` or ``openpifpaf_tpu`` (the machine with the
   card has none of them), the training path included;
-- entry points default to ``device='cuda'`` and raise without CUDA instead
-  of falling back to the CPU;
+- entry points (the predict CLI and the detection decoders among them)
+  default to ``device='cuda'`` and raise without CUDA instead of falling
+  back to the CPU;
 - the CUDA kernels' wrappers take CUDA tensors only: the plain versions are
   chosen (by ``cif_hr.accumulate``, ``pair_chain.apply_chain``) only for
   tensors that lie on the CPU.
@@ -59,7 +60,12 @@ def test_port_sources_found():
                  'models/tracking_base.py', 'plugins/posetrack/__init__.py',
                  'plugins/posetrack/toykpst.py', 'metric/posetrack.py',
                  'encoder/tcaf.py', 'transforms/pair.py',
-                 'datasets/loader_with_reset.py'):
+                 'datasets/loader_with_reset.py', 'predict.py', 'logger.py',
+                 'debug_checks.py', 'decoder/cifdet.py', 'decoder/multi.py',
+                 'encoder/cifdet.py', 'datasets/multimodule.py',
+                 'datasets/image_list.py',
+                 'plugins/cifar10/__init__.py',
+                 'plugins/cifar10/datamodule.py'):
         assert os.path.join(REPO, 'openpifpaf_tpu_torch', name) in files
     assert len(files) > 20
 
@@ -89,6 +95,14 @@ def test_import_loads_no_jax_and_builds_nothing():
         'openpifpaf_tpu_torch.models.tracking_base, '
         'openpifpaf_tpu_torch.plugins.posetrack, '
         'openpifpaf_tpu_torch.metric.posetrack, '
+        'openpifpaf_tpu_torch.predict, openpifpaf_tpu_torch.logger, '
+        'openpifpaf_tpu_torch.debug_checks, '
+        'openpifpaf_tpu_torch.decoder.cifdet, '
+        'openpifpaf_tpu_torch.decoder.multi, '
+        'openpifpaf_tpu_torch.encoder.cifdet, '
+        'openpifpaf_tpu_torch.datasets.multimodule, '
+        'openpifpaf_tpu_torch.datasets.image_list, '
+        'openpifpaf_tpu_torch.plugins.cifar10, '
         'openpifpaf_tpu_torch.kernels as k\n'
         f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]\n'
         'assert not bad, bad\n'
@@ -128,6 +142,16 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match='CUDA'):
         Predictor(base_name='shufflenetv2k16', head_metas=coco_metas(),
                   device='cuda')
+    from openpifpaf_tpu_torch.plugins.cifar10 import Cifar10
+    cifdet_metas = Cifar10().head_metas
+    cifdet_metas[0].base_stride = 16
+    with pytest.raises(RuntimeError, match='CUDA'):
+        decoder.factory(cifdet_metas)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        decoder.factory(coco_metas() + cifdet_metas)
+    from openpifpaf_tpu_torch import predict
+    with pytest.raises(RuntimeError, match='CUDA'):
+        predict.main(['x.png', '--checkpoint=missing.npz', '-q'])
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
