@@ -1,6 +1,6 @@
 """Drive the PyTorch port's predict, train, eval, tracking and detection
 paths on an NVIDIA card, with the dense-connection and 133-keypoint
-WholeBody configurations.
+WholeBody configurations, and every backbone of the registry.
 
 Usage (from the repository root, one CUDA card):
 
@@ -123,12 +123,28 @@ Phases, in order; any failure raises and exits non-zero:
    of 641 px on the card (poses and boxes in every json) and with 2 PNGs
    of 129 px on the card and on the CPU, f32, held by
    ``hold_predict_jsons``;
-14. a ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
+14. backbones: every registered backbone (21) with seeded weights and
+   cocokp's CIF and CAF heads: (a) the card's served forward against the
+   port's CPU forward in f32 (TF32 off) at 129 px, batch 1, within 1e-4
+   of the CPU output's scale per head; (b) at 641 px, batch 8, bf16: the
+   forward in ms per image (CUDA events, median of 10 after warm-up), the
+   peak memory above the weights, batch and fields, and the output held to
+   the card's f32 forward of the same batch within 3% of its scale per
+   head; (c) ``resnet50`` and then ``swin_t`` at full width, bias-shifted,
+   served through ``Predictor`` and the CifCaf decode, 3 chained batches of
+   8 at 641 px (K1 once per batch, K2 never: its pair plan is
+   ShuffleNetV2K's; counts set to 0 before, read after), end-to-end,
+   forward and decode ms per image, host syncs per batch, the first
+   batch's decode held to the CPU decode on two images
+   (``hold_at_budget``), K1 held to its plain version and timed on the
+   inputs the main path handed it;
+15. a ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
    serve phase, ``eval_launches`` from the multi-scale eval,
-   ``dense_launches``, ``wholebody_launches``, ``tracking_launches`` and
-   ``detect_launches`` from those phases' runs, ``wholebody``,
-   ``tracking``, ``detect`` and ``detect_cifar10`` its hold and times at
-   those shapes), the card's name and power limit, then the last line
+   ``dense_launches``, ``wholebody_launches``, ``tracking_launches``,
+   ``detect_launches`` and ``backbones_launches`` (per served backbone)
+   from those phases' runs, ``wholebody``, ``tracking``, ``detect``,
+   ``detect_cifar10`` and ``backbones`` its hold and times at those
+   shapes), the card's name and power limit, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports only the port, torch and numpy.
@@ -3016,6 +3032,132 @@ def detect_phase(port, card: str, tmp: str) -> dict:
                 k1_cifar10=k1_cifar10)
 
 
+# -------------------------------------------------------------- backbones
+BACKBONE_CHECK_EDGE = 129
+BACKBONE_F32_TOL = 1e-4    # of the CPU output's scale, per head
+BACKBONE_BF16_TOL = 3e-2   # of the f32 output's scale, per head
+SERVED_BACKBONES = ('resnet50', 'swin_t')
+
+
+def head_differences(got, want):
+    """Per head, max |got - want| / max |want|."""
+    return [float((g.float().cpu() - w.float().cpu()).abs().max()
+                  / w.float().abs().max()) for g, w in zip(got, want)]
+
+
+def backbone_card_vs_cpu(port, name: str, metas) -> float:
+    """(a) ``name`` with seeded weights and cocokp's heads, f32 (TF32 off)
+    at 129 px, batch 1: the card's served forward (``Model.__call__``)
+    against the port's CPU forward of the same weights.  Returns the worst
+    head's max |d| / max |CPU|."""
+    cpu = port.models.factory(name, metas, device='cpu', bf16=False, seed=0)
+    card = port.models.Model(copy.deepcopy(cpu.module), metas,
+                             base_stride=cpu.base_stride,
+                             device=torch.device('cuda'), bf16=False)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(1, 3, BACKBONE_CHECK_EDGE, BACKBONE_CHECK_EDGE))
+        .astype(np.float32))
+    worst = max(head_differences(card(x.cuda()), cpu(x)))
+    if not worst <= BACKBONE_F32_TOL:
+        raise AssertionError(f'{name}: card and CPU forwards differ in f32: '
+                             f'{worst}')
+    return worst
+
+
+def backbone_full_width(port, name: str, metas) -> dict:
+    """(b) ``name`` at 641 px, batch 8: the bf16 forward timed (CUDA events,
+    median of 10 after 2 warm-up calls) with its peak memory above what is
+    allocated before it (weights, the batch and one forward's fields), held
+    to the card's f32 forward (TF32 off) of the same batch within 3% of the
+    f32 output's scale per head."""
+    model = port.models.factory(name, metas, device='cuda', bf16=True,
+                                seed=0)
+    model32 = port.models.Model(model.module, metas,
+                                base_stride=model.base_stride,
+                                device=model.device, bf16=False)
+    x = torch.randn(SERVE_BATCH, 3, SERVE_EDGE, SERVE_EDGE, device='cuda',
+                    generator=torch.Generator('cuda').manual_seed(0))
+    fields = model(x)        # cuDNN's autotuning, outside the peak
+    check_field_shapes(fields, name, ((17, 5), (19, 9)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = cuda_ms(lambda: model(x))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    worst = max(head_differences(fields, model32(x)))
+    row = dict(name=name, ms_per_img=ms[0] / SERVE_BATCH,
+               min_ms_per_img=ms[1] / SERVE_BATCH, peak_gib=peak,
+               bf16_vs_f32=worst)
+    del model, model32, fields
+    torch.cuda.empty_cache()
+    if not worst <= BACKBONE_BF16_TOL:
+        raise AssertionError(f'{name}: bf16 and f32 forwards differ by '
+                             f'{worst} of the scale')
+    return row
+
+
+def serve_backbone(port, name: str, card: str) -> dict:
+    """(c) ``name`` at full width with cocokp's heads, bias-shifted, bf16,
+    served through ``Predictor`` and the CifCaf decode: 3 chained batches
+    of 8 at 641 px (K1 once per batch, no K2: the pair plan is
+    ShuffleNetV2K's), the first batch's decode held to the CPU decode on
+    two images (``hold_at_budget``), K1 held to its plain version and
+    timed on the inputs the main path handed it."""
+    metas = list(coco_metas(port.headmeta, port.constants))
+    predictor = shifted_predictor(port, name, metas)
+    run = served_run(port, predictor, random_batches(11), f'{name} served',
+                     capture=True)
+    counts = run['counts']
+    want = dict(k1=SERVE_BATCHES, k1_cuda=2 * SERVE_BATCHES, k2=0, k2_cuda=0)
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f'{name} served: kernel counts {counts}, want '
+                             f'{want}')
+    fields, on_card = run['decoded']
+    check_field_shapes(fields, f'{name} served', ((17, 5), (19, 9)))
+    hold_at_budget(port, predictor.decoder, [t[:2] for t in on_card],
+                   [f[:2] for f in fields], f'{name} served batch')
+    args, kwargs = run['captured'][0]
+    k1 = measure_cif_hr(port.cif_hr, f'{name} served batch', args, kwargs)
+    k1['shape'] = [list(a.shape) for a in args]
+    del predictor
+    torch.cuda.empty_cache()
+    return dict(counts=counts, k1=k1)
+
+
+def backbones_phase(port, card: str) -> dict:
+    """Every registered backbone: (a) card against CPU in f32 at 129 px,
+    (b) at full width in bf16 (ms/img, peak memory, held to f32), (c)
+    ``resnet50`` and ``swin_t`` served through ``Predictor`` with K1."""
+    start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
+    names = sorted(port.models.BASE_FACTORIES)
+    metas = list(coco_metas(port.headmeta, port.constants))
+    rows = []
+    for name in names:
+        cpu_err = backbone_card_vs_cpu(port, name, metas)
+        row = backbone_full_width(port, name, metas)
+        row['card_vs_cpu'] = cpu_err
+        rows.append(row)
+        print(f'backbone {name}: card vs CPU f32 at {BACKBONE_CHECK_EDGE} px '
+              f'max|d|/max|CPU| {cpu_err:.3e} (limit {BACKBONE_F32_TOL}); '
+              f'{SERVE_EDGE} px batch {SERVE_BATCH} bf16 forward '
+              f'{row["ms_per_img"]:.4f} ms/img (min '
+              f'{row["min_ms_per_img"]:.4f}), peak memory '
+              f'{row["peak_gib"]:.3f} GiB above the weights, batch and fields, '
+              f'bf16 '
+              f'vs f32 max|d|/max|f32| {row["bf16_vs_f32"]:.3e} (limit '
+              f'{BACKBONE_BF16_TOL})', flush=True)
+    print(f'backbones held: {len(rows)} of {len(names)} ({card})',
+          flush=True)
+    served = {name: serve_backbone(port, name, card)
+              for name in SERVED_BACKBONES}
+    print(f'backbones phase: {time.perf_counter() - start:.1f} s ({card})',
+          flush=True)
+    return dict(rows=rows, served=served)
+
+
 class _Port:
     """The port's modules, imported after the card check."""
 
@@ -3119,10 +3261,14 @@ def main() -> int:
         tracked = tracking_phase(port, card, tmp)
         phase('detect')
         detected = detect_phase(port, card, tmp)
+    phase('backbones')
+    backbones = backbones_phase(port, card)
+    k1_backbones = [r['k1'] for r in backbones['served'].values()]
     max_err = max([max_err, wholebody['k1']['max_abs_err'],
                    tracked['k1']['max_abs_err'],
                    detected['k1']['max_abs_err'],
                    detected['k1_cifar10']['max_abs_err']]
+                  + [r['max_abs_err'] for r in k1_backbones]
                   + [r['max_abs_err'] for kind, r in evaluated['checks']
                      if kind == 'cif_hr'])
     k2_err = max([k2_err, wholebody['k2']['max_abs_err'],
@@ -3151,6 +3297,10 @@ def main() -> int:
         'detect_launches': detected['counts']['k1'],
         'detect': at_new_shape(detected['k1']),
         'detect_cifar10': at_new_shape(detected['k1_cifar10']),
+        'backbones_launches': {name: r['counts']['k1'] for name, r in
+                               backbones['served'].items()},
+        'backbones': {name: at_new_shape(r['k1']) for name, r in
+                      backbones['served'].items()},
         'max_abs_err': max_err, 'max_abs_diff': max_err,
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
@@ -3167,6 +3317,8 @@ def main() -> int:
         'tracking_launches': tracked['counts']['k2'],
         'tracking': at_new_shape(tracked['k2']),
         'detect_launches': detected['counts']['k2'],
+        'backbones_launches': {name: r['counts']['k2'] for name, r in
+                               backbones['served'].items()},
         'max_abs_err': k2_err, 'max_abs_diff': k2_err,
         'ms': k2_main['ms'], 'plain_ms': k2_main['plain_ms'],
         'bound_ms': k2_main['bound_ms'], 'bound_by': k2_main['bound_by'],

@@ -24,7 +24,7 @@ import os
 import sys
 import time
 
-from . import datasets, decoder, logger, plugins
+from . import datasets, decoder, logger, models, plugins
 from .predictor import Predictor
 
 LOG = logging.getLogger(__name__)
@@ -130,6 +130,7 @@ def cli(argv=None) -> argparse.Namespace:
     group.add_argument('--basenet', default=None,
                        help='base network of a fresh model with seeded '
                             'weights, when no checkpoint is given')
+    models.norm_cli(group)
     group.add_argument('--no-bf16', dest='bf16', default=True,
                        action='store_false',
                        help='compute in float32 instead of bfloat16')
@@ -153,7 +154,8 @@ def main(argv=None) -> int:
     datamodule = datasets.factory(args.dataset)
     predictor = Predictor(checkpoint=args.checkpoint, base_name=args.basenet,
                           head_metas=datamodule.head_metas, device=args.device,
-                          bf16=args.bf16, seed=args.seed)
+                          bf16=args.bf16, seed=args.seed,
+                          norm=args.basenet_norm)
     LOG.info('eval of %s on %s', args.checkpoint or args.basenet,
              predictor.device)
 

@@ -8,7 +8,7 @@ arithmetic.  Modules are ``torch.nn`` and run NCHW.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -68,3 +68,94 @@ class BatchNorm(nn.BatchNorm2d):
 
 def batch_norm(channels: int) -> BatchNorm:
     return BatchNorm(channels, eps=BN_EPSILON)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax's ``nn.GroupNorm(dtype=x.dtype)``: the statistics and the
+    normalization in float32 from the input as it is, the output in the
+    input's dtype (bf16 in a bf16 forward), inside an autocast region as
+    outside it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with torch.autocast(x.device.type, enabled=False):
+            return F.group_norm(x.float(), self.num_groups, self.weight,
+                                self.bias, self.eps).to(x.dtype)
+
+
+NORM_KINDS = ('batchnorm', 'instancenorm', 'groupnorm', 'none')
+
+
+def norm_layer(kind: str, channels: int) -> nn.Module:
+    """The backbone's normalization layer, ``NormFactory`` of
+    ``openpifpaf_tpu/models/base.py:49-79``: ``batchnorm`` (flax's
+    statistics, ``BatchNorm``), ``instancenorm`` (affine, one channel per
+    group, as flax's ``GroupNorm(group_size=1)``), ``groupnorm`` (32
+    groups) or ``none`` (the identity).  eps 1e-5 throughout."""
+    if kind == 'batchnorm':
+        return batch_norm(channels)
+    if kind == 'instancenorm':
+        return GroupNorm(channels, channels, eps=BN_EPSILON)
+    if kind == 'groupnorm':
+        return GroupNorm(32, channels, eps=BN_EPSILON)
+    if kind == 'none':
+        return nn.Identity()
+    raise ValueError(f'unknown norm kind {kind!r}')
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax's ``nn.LayerNorm(param_dtype=float32)`` with no ``dtype``: the
+    statistics and the output are float32 whatever the input's dtype (flax
+    promotes to the parameters' dtype), inside a bf16 autocast region as
+    outside it.  ``eps`` is flax's default, 1e-6, unless given: Swin sets
+    1e-5, XCiT and HRFormer keep the default."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__(dim, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with torch.autocast(x.device.type, enabled=False):
+            return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                                self.bias, self.eps)
+
+
+def compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype the library's matmuls and convs run in here: autocast's
+    inside an autocast region, else ``x``'s (the JAX modules' ``dtype``)."""
+    if torch.is_autocast_enabled(x.device.type):
+        return torch.get_autocast_dtype(x.device.type)
+    return x.dtype
+
+
+def dot_f32(equation: str, *operands: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    """``jnp.einsum(equation, ..., preferred_element_type=float32)`` on
+    operands in the compute ``dtype``: each operand is rounded to ``dtype``
+    and the products are summed and returned in float32, as the JAX
+    attention computes its logits and its weighted values."""
+    with torch.autocast(operands[0].device.type, enabled=False):
+        return torch.einsum(equation,
+                            *[t.to(dtype).float() for t in operands])
+
+
+# constants on the device, by (what, arguments, device)
+_DEVICE_CONSTANTS: Dict[Tuple, torch.Tensor] = {}
+
+
+def device_constant(fn, *args, device) -> torch.Tensor:
+    """``fn(*args)`` (a numpy constant of static shapes) on ``device``,
+    copied there once."""
+    key = (fn.__name__, args, str(device))
+    if key not in _DEVICE_CONSTANTS:
+        _DEVICE_CONSTANTS[key] = torch.from_numpy(fn(*args)).to(device)
+    return _DEVICE_CONSTANTS[key]
+
+
+# raw parameters (``self.param`` outside Dense/Conv/norm layers) of the
+# backbones, by name: flax's initializer in kind (``factory.init_weights``)
+# and carried by ``from_jax`` under the same name
+RAW_PARAMETERS = {
+    'relative_position_bias_table': 'truncated_normal_0.02',   # Swin
+    'rel_h': 'normal_0.02', 'rel_w': 'normal_0.02',             # BoTNet
+    'temperature': 'ones',                                       # XCiT
+    'gamma1': 'ones', 'gamma2': 'ones', 'gamma3': 'ones',        # XCiT
+}

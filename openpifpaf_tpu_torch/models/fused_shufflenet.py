@@ -70,8 +70,8 @@ class Plan(NamedTuple):
 
 
 def supports(module) -> bool:
-    """The fused plans cover the (batchnorm) ShuffleNetV2K backbones."""
-    return isinstance(module, ShuffleNetV2K)
+    """The fused plans cover the batchnorm ShuffleNetV2K backbones."""
+    return isinstance(module, ShuffleNetV2K) and module.norm == 'batchnorm'
 
 
 def supports_pair(module) -> bool:

@@ -85,8 +85,8 @@ class Model:
     @torch.no_grad()
     def apply_fast(self, x: torch.Tensor) -> List[torch.Tensor]:
         """Inference forward through the fused plan: the same math as
-        ``apply``.  ShuffleNetV2K backbones take ``fused_shufflenet``'s plan,
-        anything else the canonical graph."""
+        ``apply``.  Batchnorm ShuffleNetV2K backbones take
+        ``fused_shufflenet``'s plan, anything else the canonical graph."""
         if not (self.fused_inference
                 and fused_shufflenet.supports(self.module.basenet)):
             return self.apply(x)

@@ -3,7 +3,10 @@
 Port of ``openpifpaf_tpu/models/shufflenetv2k.py``.  Reference parity:
 ``src/openpifpaf/network/basenetworks.py:~200`` (``ShuffleNetV2K``): a
 ShuffleNetV2 variant with 5x5 depthwise kernels, no max-pool (total stride
-16).  Submodule names follow the flax module names (``conv1``,
+16), with the backbone's normalization configurable (``norm``,
+``base.norm_layer``).  ``shufflenetv2x1``/``x2`` are the same network with
+3x3 depthwise kernels, the plain ShuffleNetV2 of
+``openpifpaf_tpu/models/shufflenetv2k.py:142-156``.  Submodule names follow the flax module names (``conv1``,
 ``stage2_0.branch1_dwconv``, ...) so ``models/from_jax.py`` maps a flax
 variable path to a state-dict key by replacing ``/`` with ``.``.
 
@@ -13,12 +16,13 @@ depthwise kernel, on the card), as the JAX package leaves them to XLA.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
 from torch import nn
 
-from .base import BaseNetworkSpec, batch_norm, register_basenet
+from .base import BaseNetworkSpec, norm_layer, register_basenet
 
 
 def channel_shuffle(x: torch.Tensor, groups: int = 2) -> torch.Tensor:
@@ -42,8 +46,9 @@ class InvertedResidualK(nn.Module):
     """ShuffleNetV2 block with a configurable (large) depthwise kernel."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int,
-                 kernel_size: int = 5):
+                 kernel_size: int = 5, norm: str = 'batchnorm'):
         super().__init__()
+        norm_of = functools.partial(norm_layer, norm)
         self.stride = stride
         bf = out_channels // 2
         k = kernel_size
@@ -51,19 +56,19 @@ class InvertedResidualK(nn.Module):
             # branch1: depthwise kxk stride s -> norm -> 1x1 -> norm -> relu
             self.branch1_dwconv = _conv(in_channels, in_channels, k, stride,
                                         groups=in_channels)
-            self.branch1_dwnorm = batch_norm(in_channels)
+            self.branch1_dwnorm = norm_of(in_channels)
             self.branch1_conv = _conv(in_channels, bf)
-            self.branch1_norm = batch_norm(bf)
+            self.branch1_norm = norm_of(bf)
             in2 = in_channels
         else:
             in2 = in_channels // 2
         # branch2: 1x1 -> norm -> relu -> dw kxk -> norm -> 1x1 -> norm -> relu
         self.branch2_conv1 = _conv(in2, bf)
-        self.branch2_norm1 = batch_norm(bf)
+        self.branch2_norm1 = norm_of(bf)
         self.branch2_dwconv = _conv(bf, bf, k, stride, groups=bf)
-        self.branch2_dwnorm = batch_norm(bf)
+        self.branch2_dwnorm = norm_of(bf)
         self.branch2_conv2 = _conv(bf, bf)
-        self.branch2_norm2 = batch_norm(bf)
+        self.branch2_norm2 = norm_of(bf)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.stride == 1:
@@ -84,14 +89,17 @@ class ShuffleNetV2K(nn.Module):
     """conv1 (stride 2) + 3 stages (stride 2 each) + conv5; NCHW in/out."""
 
     def __init__(self, stages_repeats: Sequence[int],
-                 stages_out_channels: Sequence[int], kernel_size: int = 5):
+                 stages_out_channels: Sequence[int], kernel_size: int = 5,
+                 norm: str = 'batchnorm'):
         super().__init__()
+        norm_of = functools.partial(norm_layer, norm)
         c = list(stages_out_channels)
         self.stages_repeats = tuple(stages_repeats)
         self.stages_out_channels = tuple(c)
         self.kernel_size = kernel_size
+        self.norm = norm
         self.conv1 = nn.Conv2d(3, c[0], 3, stride=2, padding=1, bias=False)
-        self.conv1_norm = batch_norm(c[0])
+        self.conv1_norm = norm_of(c[0])
         self.block_names = []
         cin = c[0]
         for stage_i, (repeats, cout) in enumerate(
@@ -99,11 +107,11 @@ class ShuffleNetV2K(nn.Module):
             for block_i in range(repeats):
                 name = f'stage{stage_i}_{block_i}'
                 self.add_module(name, InvertedResidualK(
-                    cin, cout, 2 if block_i == 0 else 1, kernel_size))
+                    cin, cout, 2 if block_i == 0 else 1, kernel_size, norm))
                 self.block_names.append(name)
                 cin = cout
         self.conv5 = nn.Conv2d(cin, c[-1], 1, bias=False)
-        self.conv5_norm = batch_norm(c[-1])
+        self.conv5_norm = norm_of(c[-1])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.conv1_norm(self.conv1(x)))
@@ -112,11 +120,18 @@ class ShuffleNetV2K(nn.Module):
         return torch.relu(self.conv5_norm(self.conv5(x)))
 
 
-def _make(repeats, channels):
-    def factory(**kwargs):
-        return ShuffleNetV2K(repeats, channels, **kwargs)
+def _make(repeats, channels, kernel_size=5):
+    def factory(norm: str = 'batchnorm'):
+        return ShuffleNetV2K(repeats, channels, kernel_size, norm)
     return factory
 
+
+register_basenet(BaseNetworkSpec(
+    'shufflenetv2x1', _make((4, 8, 4), (24, 116, 232, 464, 1024), 3),
+    stride=16, out_features=1024))
+register_basenet(BaseNetworkSpec(
+    'shufflenetv2x2', _make((4, 8, 4), (24, 244, 488, 976, 2048), 3),
+    stride=16, out_features=2048))
 
 register_basenet(BaseNetworkSpec(
     'shufflenetv2k16', _make((4, 8, 4), (24, 348, 696, 1392, 1392)),

@@ -24,7 +24,7 @@ import logging
 import os
 import sys
 
-from . import decoder, logger
+from . import decoder, logger, models
 from .predictor import Predictor
 
 LOG = logging.getLogger(__name__)
@@ -50,6 +50,7 @@ def cli(argv=None) -> argparse.Namespace:
     group = parser.add_argument_group('network configuration')
     group.add_argument('--checkpoint', default=None,
                        help='npz checkpoint (the JAX package\'s format)')
+    models.norm_cli(group)
     group.add_argument('--no-bf16', dest='bf16', default=True,
                        action='store_false',
                        help='compute in float32 instead of bfloat16')
@@ -83,7 +84,7 @@ def main(argv=None) -> int:
         return 1
 
     predictor = Predictor(checkpoint=args.checkpoint, device=args.device,
-                          bf16=args.bf16)
+                          bf16=args.bf16, norm=args.basenet_norm)
     for pred, _, meta in predictor.images(image_paths):
         LOG.info('%s: %d annotations', meta['file_name'], len(pred))
         if args.json_output is not None:

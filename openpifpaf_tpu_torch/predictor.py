@@ -45,15 +45,16 @@ class Predictor:
                  model: Optional[models.Model] = None,
                  base_name: Optional[str] = None, head_metas=None,
                  json_data: bool = False, device=None, bf16: bool = True,
-                 seed: int = 0):
+                 seed: int = 0, norm: str = 'batchnorm'):
         """``device=None`` means the card (raises without CUDA).  The model
         is ``model``, else a JAX-package ``checkpoint`` npz, else a fresh
-        ``base_name`` model with weights from ``seed``."""
+        ``base_name`` model with weights from ``seed``; ``norm`` is the
+        backbone's normalization (``--basenet-norm``)."""
         self.device = resolve_device(device)
         if model is None:
             model = models.factory(base_name, head_metas,
                                    checkpoint=checkpoint, bf16=bf16,
-                                   device=self.device, seed=seed)
+                                   device=self.device, seed=seed, norm=norm)
         elif model.device != self.device:
             raise ValueError(f'model on {model.device}, predictor on '
                              f'{self.device}')

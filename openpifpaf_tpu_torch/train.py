@@ -65,6 +65,7 @@ def cli(argv=None) -> argparse.Namespace:
                        help='npz checkpoint to start from')
     group.add_argument('--basenet', default=None,
                        help=f'base network, one of {sorted(models.BASE_FACTORIES)}')
+    models.norm_cli(group)
     group.add_argument('--no-bf16', dest='bf16', default=True,
                        action='store_false',
                        help='compute in float32 instead of bfloat16')
@@ -103,7 +104,8 @@ def main(argv=None) -> int:
     datamodule.seed = args.seed
     model = models.factory(args.basenet, datamodule.head_metas,
                            checkpoint=args.checkpoint, bf16=args.bf16,
-                           device=device, seed=args.seed)
+                           device=device, seed=args.seed,
+                           norm=args.basenet_norm)
     if args.checkpoint:
         names = [(type(m).__name__, m.name) for m in model.head_metas]
         if names != [(type(m).__name__, m.name) for m in datamodule.head_metas]:

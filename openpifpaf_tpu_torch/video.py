@@ -159,6 +159,7 @@ def cli(argv=None) -> argparse.Namespace:
                        help='base network of a fresh model with seeded '
                             'weights and the toykpst tracking heads, when '
                             'no checkpoint is given')
+    models.norm_cli(group)
     group.add_argument('--no-bf16', dest='bf16', default=True,
                        action='store_false',
                        help='compute in float32 instead of bfloat16')
@@ -186,7 +187,8 @@ def main(argv=None) -> int:
         head_metas = ToyKpSt().head_metas
     model = models.factory(args.basenet, head_metas,
                            checkpoint=args.checkpoint, bf16=args.bf16,
-                           device=args.device, seed=args.seed)
+                           device=args.device, seed=args.seed,
+                           norm=args.basenet_norm)
     processor = VideoProcessor(model, long_edge=args.long_edge)
     LOG.info('tracking mode: %s, on %s', processor.tracking, model.device)
 

@@ -1,0 +1,12 @@
+"""The weight bridge at full width, both ways, for EfficientNetV2 and the
+ShuffleNetV2 family (plain and K).  The harness is
+``test_torch_port_backbones_weights.py``'s."""
+
+import pytest
+
+from test_torch_port_backbones_weights import NAMES, hold_round_trip
+
+
+@pytest.mark.parametrize('name', NAMES['effnet'])
+def test_round_trip(name):
+    hold_round_trip(name)

@@ -65,7 +65,10 @@ def test_port_sources_found():
                  'encoder/cifdet.py', 'datasets/multimodule.py',
                  'datasets/image_list.py',
                  'plugins/cifar10/__init__.py',
-                 'plugins/cifar10/datamodule.py'):
+                 'plugins/cifar10/datamodule.py', 'models/resnet.py',
+                 'models/mobilenet.py', 'models/squeezenet.py',
+                 'models/effnetv2.py', 'models/swin.py', 'models/xcit.py',
+                 'models/botnet.py', 'models/hrformer.py'):
         assert os.path.join(REPO, 'openpifpaf_tpu_torch', name) in files
     assert len(files) > 20
 
@@ -103,6 +106,13 @@ def test_import_loads_no_jax_and_builds_nothing():
         'openpifpaf_tpu_torch.datasets.multimodule, '
         'openpifpaf_tpu_torch.datasets.image_list, '
         'openpifpaf_tpu_torch.plugins.cifar10, '
+        'openpifpaf_tpu_torch.models.resnet, '
+        'openpifpaf_tpu_torch.models.mobilenet, '
+        'openpifpaf_tpu_torch.models.squeezenet, '
+        'openpifpaf_tpu_torch.models.effnetv2, '
+        'openpifpaf_tpu_torch.models.swin, openpifpaf_tpu_torch.models.xcit, '
+        'openpifpaf_tpu_torch.models.botnet, '
+        'openpifpaf_tpu_torch.models.hrformer, '
         'openpifpaf_tpu_torch.kernels as k\n'
         f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]\n'
         'assert not bad, bad\n'
@@ -127,6 +137,9 @@ def test_entry_points_default_to_the_card():
         Predictor(base_name='shufflenetv2k16', head_metas=coco_metas())
     with pytest.raises(RuntimeError, match='CUDA'):
         models.factory('shufflenetv2k16', coco_metas())
+    for name in ('resnet50', 'swin_t'):
+        with pytest.raises(RuntimeError, match='CUDA'):
+            models.factory(name, coco_metas())
     cif, caf = coco_metas()
     with pytest.raises(RuntimeError, match='CUDA'):
         ops.make_batch_decoder(cif_meta=cif, caf_meta=caf,
