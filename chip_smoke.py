@@ -1,6 +1,7 @@
 """Drive the PyTorch port's predict, train, eval, tracking and detection
 paths on an NVIDIA card, with the dense-connection and 133-keypoint
-WholeBody configurations, and every backbone of the registry.
+WholeBody configurations, every backbone of the registry and the
+COCO-format data modules.
 
 Usage (from the repository root, one CUDA card):
 
@@ -138,14 +139,35 @@ Phases, in order; any failure raises and exits non-zero:
    batch's decode held to the CPU decode on two images
    (``hold_at_budget``), K1 held to its plain version and timed on the
    inputs the main path handed it;
-15. a ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
+15. coco: the COCO-format data modules on a synthesized tree
+   (``write_coco_tree``: 24 PNG images of 640x480 and 480x640 with
+   person_keypoints, instances and CrowdPose jsons): (a) the tree; (b)
+   ``train.main`` (the train CLI, in this process so that it can be
+   measured) on ``--dataset cocokp``, sn2k16, bf16, batch 8, 385 px, one
+   epoch with the full augmentation chain and both rotations and blur on
+   (ms per step by CUDA events, the host's ms per batch split by
+   transform class, every loss finite); (c) the eval CLI on its
+   checkpoint at 641 px (the stats json's keys), then a bias-shifted
+   sn2k16 with cocokp's heads through ``Evaluator`` on the cocokp eval
+   loader (K1 once and K2 three times per batch, counts set to 0 before
+   and read after; images/s, ``nn_time``, ``decoder_time``, host syncs
+   per batch), the first batch's decode held to the CPU decode
+   (``hold_at_budget``), K1 and K2 held to their plain versions and timed
+   on its inputs; (d) cocodet trained for one epoch at 513 px, its
+   checkpoint's CifDet head calibrated and evaluated through ``Evaluator``
+   at 641 px (K1 once at F = 80 and K2 three times per batch, no host
+   sync), two images held to the CPU decode (``hold_dets``), K1 held and
+   timed; (e) crowdpose's heads on one eval batch: the AP of each
+   crowd-index band, K1 held and timed at F = 14;
+16. a ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
    serve phase, ``eval_launches`` from the multi-scale eval,
    ``dense_launches``, ``wholebody_launches``, ``tracking_launches``,
-   ``detect_launches`` and ``backbones_launches`` (per served backbone)
-   from those phases' runs, ``wholebody``, ``tracking``, ``detect``,
-   ``detect_cifar10`` and ``backbones`` its hold and times at those
-   shapes), the card's name and power limit, then the last line
-   ``{"ok": true, "device": {...}}``.
+   ``detect_launches``, ``backbones_launches`` (per served backbone) and
+   ``coco_launches`` (per data module) from those phases' runs,
+   ``wholebody``, ``tracking``, ``detect``, ``detect_cifar10``,
+   ``backbones`` and ``coco`` its hold and times at those shapes), the
+   card's name and power limit, then the last line ``{"ok": true,
+   "device": {...}}``.
 
 It imports only the port, torch and numpy.
 """
@@ -1356,10 +1378,11 @@ def zero_counts(port) -> None:
     port.common.HOST_SYNCS = 0
 
 
-def eval_run(port, predictor, dm, label):
-    """One ``Evaluator.run`` with the counts set to 0 just before and read
-    just after; per variant (one ``dataset_loader`` call each, in variant
-    order) the K1 calls, K2 chain calls and images.  Keeps every batch's
+def eval_run(port, predictor, dm, label, n_images=EVAL_IMAGES):
+    """One ``Evaluator.run`` of ``n_images`` images with the counts set
+    to 0 just before and read just after; per variant (one
+    ``dataset_loader`` call each, in variant order) the K1 calls, K2 chain
+    calls and images.  Keeps every batch's
     fields and decode, and the first K1 and K2 inputs of each size."""
     per_variant, decoded, captured = [], [], {}
     loader_fn = predictor.dataset_loader
@@ -1430,7 +1453,7 @@ def eval_run(port, predictor, dm, label):
           f'batch of {EVAL_BATCH}); per variant [cif_hr, pair_chain, '
           f'images] {per_variant}; peak device memory '
           f'{counts["peak_gib"]:.2f} GiB', flush=True)
-    if stats['n_images'] != EVAL_IMAGES:
+    if stats['n_images'] != n_images:
         raise AssertionError(f'eval {label}: {stats["n_images"]} images')
     return dict(stats=stats, counts=counts, per_variant=per_variant,
                 decoded=decoded, captured=captured)
@@ -3158,17 +3181,547 @@ def backbones_phase(port, card: str) -> dict:
     return dict(rows=rows, served=served)
 
 
+# ------------------------------------------------------------------- coco
+# A synthesized COCO-format tree (PNG images, person_keypoints, instances
+# and CrowdPose-style jsons): the repository holds none of the datasets and
+# nothing is downloaded.  People are rendered as ``ToyKpDataset.render``
+# renders them (a blob of one colour per keypoint type on dark noise), so a
+# checkpoint could learn from them; objects of the instances json are
+# textured boxes of one colour per category.
+COCO_SIZES = ((640, 480), (480, 640)) * 12
+COCO_OBJECT_CATEGORIES = (3, 17, 18, 42, 62)
+CROWD_INDICES = (0.03, 0.4, 0.85)    # easy, medium and hard bands
+
+
+def coco_people(rng, w: int, h: int, n: int, keypoint_tables):
+    """``n`` separated upright people: (17, 3) COCO keypoints with
+    visibility 0/1/2 (0 also zeroes x and y, as COCO does) and the scale."""
+    pose = np.asarray(keypoint_tables.COCO_UPRIGHT_POSE, np.float32)
+    short = min(w, h)
+    people, centers = [], []
+    for _ in range(n):
+        scale = rng.uniform(short / 14.0, short / 5.0)
+        for _attempt in range(10):
+            cx = rng.uniform(2 * scale, max(w - 2 * scale, 2 * scale + 1))
+            cy = rng.uniform(0.2 * scale, max(h - 2 * scale, 0.2 * scale + 1))
+            if all(np.hypot(cx - px, cy - py) > 2.5 * scale
+                   for px, py in centers):
+                break
+        else:
+            continue
+        centers.append((cx, cy))
+        kp = np.zeros((len(pose), 3), np.float32)
+        kp[:, 0] = pose[:, 0] * scale / 3.0 + cx
+        kp[:, 1] = (5.0 - pose[:, 1] / 2.0) * scale / 3.0 + cy
+        kp[:, 2] = rng.choice([0.0, 1.0, 2.0], len(pose), p=[0.1, 0.1, 0.8])
+        outside = ((kp[:, 0] < 0) | (kp[:, 0] > w - 1) | (kp[:, 1] < 0)
+                   | (kp[:, 1] > h - 1))
+        kp[outside, 2] = 0.0
+        kp[kp[:, 2] == 0, :2] = 0.0
+        people.append((kp, scale))
+    return people
+
+
+def person_box(kp, scale, w, h):
+    labeled = kp[kp[:, 2] > 0, :2]
+    x0 = max(0.0, float(labeled[:, 0].min()) - 0.15 * scale)
+    y0 = max(0.0, float(labeled[:, 1].min()) - 0.2 * scale)
+    x1 = min(w - 1.0, float(labeled[:, 0].max()) + 0.15 * scale)
+    y1 = min(h - 1.0, float(labeled[:, 1].max()) + 0.1 * scale)
+    return [round(x0, 2), round(y0, 2), round(x1 - x0, 2), round(y1 - y0, 2)]
+
+
+def render_blobs(image, kp, colors, var):
+    """Add one Gaussian blob per visible keypoint (half as bright where
+    the keypoint is labelled occluded), in a window of 4 sigma."""
+    h, w = image.shape[:2]
+    r = int(4 * np.sqrt(var)) + 1
+    for (x, y, v), color in zip(kp, colors):
+        if v == 0:
+            continue
+        x0, x1 = max(0, int(x) - r), min(w, int(x) + r + 1)
+        y0, y1 = max(0, int(y) - r), min(h, int(y) + r + 1)
+        yy, xx = np.mgrid[y0:y1, x0:x1].astype(np.float32)
+        blob = np.exp(-0.5 * ((xx - x) ** 2 + (yy - y) ** 2) / var)
+        image[y0:y1, x0:x1] += (blob[:, :, None] * color[None, None, :]
+                                * (0.5 if v == 1 else 1.0))
+
+
+def crowdpose_keypoints(kp):
+    """COCO's 17 keypoints -> CrowdPose's 14: shoulders to ankles, then a
+    head top above the nose and the neck between the shoulders."""
+    out = np.zeros((14, 3), np.float32)
+    out[:12] = kp[5:17]
+    shoulders = kp[5:7]
+    if kp[0, 2] > 0 and (shoulders[:, 2] > 0).all():
+        neck_y = shoulders[:, 1].mean()
+        out[12] = (kp[0, 0], kp[0, 1] - 0.6 * (neck_y - kp[0, 1]), kp[0, 2])
+    if (shoulders[:, 2] > 0).all():
+        out[13] = (shoulders[:, 0].mean(), shoulders[:, 1].mean(),
+                   shoulders[:, 2].min())
+    return out
+
+
+def write_coco_tree(root: str, sizes=COCO_SIZES, seed: int = 0) -> dict:
+    """Write ``len(sizes)`` PNG images of (w, h) under ``root/images`` and
+    three jsons under ``root/annotations``: ``person_keypoints.json`` (1-4
+    people per image with 17 keypoints, ``num_keypoints``, boxes, areas,
+    and an ``iscrowd`` region on every third image; image 1 has no
+    annotation and image 2 only a person without keypoints and a crowd
+    region, so the filters have work), ``instances.json`` (the people's
+    boxes, 1-3 objects of ``COCO_OBJECT_CATEGORIES`` per image and the
+    crowd regions) and ``crowdpose.json`` (the people's 14 CrowdPose
+    keypoints, a ``crowdIndex`` per image cycling through the three
+    bands).  Image ids run backwards, so that sorting them matters.
+    Returns the paths."""
+    from openpifpaf_tpu_torch import image_io
+    from openpifpaf_tpu_torch.plugins.coco import constants
+
+    rng = np.random.default_rng(seed)
+    colors = np.random.default_rng(12345).integers(
+        64, 255, (len(constants.COCO_KEYPOINTS), 3))
+    palette = np.random.default_rng(4242).integers(40, 255, (81, 3))
+    paths = dict(images=os.path.join(root, 'images'),
+                 annotations=os.path.join(root, 'annotations'))
+    for d in paths.values():
+        os.makedirs(d, exist_ok=True)
+    kp_images, kp_anns, det_anns, cp_images, cp_anns = [], [], [], [], []
+    ann_id = 0
+    for i, (w, h) in enumerate(sizes):
+        image_id = 7 * (len(sizes) - i) + 3
+        file_name = f'{image_id:012d}.png'
+        entry = dict(id=image_id, file_name=file_name, width=w, height=h)
+        kp_images.append(entry)
+        cp_images.append(dict(entry, crowdIndex=CROWD_INDICES[
+            i % len(CROWD_INDICES)]))
+        image = rng.integers(0, 60, (h, w, 3)).astype(np.float32)
+        # objects first: the people stand in front of them
+        for _ in range(int(rng.integers(1, 4))):
+            category = int(rng.choice(COCO_OBJECT_CATEGORIES))
+            bw, bh = rng.uniform(0.1, 0.35) * w, rng.uniform(0.1, 0.35) * h
+            bx, by = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            x0, y0 = int(bx), int(by)
+            x1, y1 = int(bx + bw), int(by + bh)
+            stripes = 0.75 + 0.25 * np.sin(np.arange(x1 - x0) / 3.0)
+            image[y0:y1, x0:x1] = (palette[category][None, None, :]
+                                   * stripes[None, :, None])
+            ann_id += 1
+            det_anns.append(dict(
+                id=ann_id, image_id=image_id, category_id=category,
+                bbox=[float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+                area=float((x1 - x0) * (y1 - y0)), iscrowd=0))
+        if i == 1:
+            n_people = 0
+        elif i == 2:
+            n_people = 1
+        else:
+            n_people = int(rng.integers(1, 5))
+        people = coco_people(rng, w, h, n_people, constants)
+        var = 4.0 * (min(w, h) / 161.0) ** 2
+        for kp, scale in people:
+            if i == 2:
+                kp[:, 2] = 0.0
+                kp[:, :2] = 0.0
+            render_blobs(image, kp, colors, var)
+            box = person_box(kp, scale, w, h) if (kp[:, 2] > 0).any() \
+                else [10.0, 10.0, 20.0, 40.0]
+            common = dict(image_id=image_id, category_id=1, bbox=box,
+                          area=round(0.6 * box[2] * box[3], 2), iscrowd=0)
+            ann_id += 1
+            kp_anns.append(dict(
+                common, id=ann_id,
+                keypoints=[round(float(v), 2) for v in kp.reshape(-1)],
+                num_keypoints=int((kp[:, 2] > 0).sum())))
+            det_anns.append(dict(common, id=ann_id))
+            cp = crowdpose_keypoints(kp)
+            cp_anns.append(dict(
+                common, id=ann_id,
+                keypoints=[round(float(v), 2) for v in cp.reshape(-1)],
+                num_keypoints=int((cp[:, 2] > 0).sum())))
+        if i % 3 == 0 or i == 2:
+            bw, bh = rng.uniform(0.1, 0.25) * w, rng.uniform(0.1, 0.25) * h
+            box = [round(float(rng.uniform(0, w - bw)), 2),
+                   round(float(rng.uniform(0, h - bh)), 2),
+                   round(float(bw), 2), round(float(bh), 2)]
+            ann_id += 1
+            crowd = dict(id=ann_id, image_id=image_id, category_id=1,
+                         bbox=box, area=round(box[2] * box[3], 2), iscrowd=1)
+            kp_anns.append(dict(crowd, keypoints=[0] * 51, num_keypoints=0))
+            det_anns.append(crowd)
+            cp_anns.append(dict(crowd, keypoints=[0] * 42, num_keypoints=0))
+        image_io.write_png(os.path.join(paths['images'], file_name),
+                           np.clip(image, 0, 255).astype(np.uint8))
+    person = dict(id=1, name='person', supercategory='person',
+                  keypoints=list(constants.COCO_KEYPOINTS),
+                  skeleton=[list(e) for e in constants.COCO_PERSON_SKELETON])
+    jsons = {
+        'person_keypoints': dict(images=kp_images, annotations=kp_anns,
+                                 categories=[person]),
+        'instances': dict(images=kp_images, annotations=det_anns,
+                          categories=[
+                              dict(id=c + 1, name=name)
+                              for c, name in enumerate(
+                                  constants.COCO_CATEGORIES)]),
+        'crowdpose': dict(images=cp_images, annotations=cp_anns,
+                          categories=[dict(id=1, name='person')]),
+    }
+    for name, data in jsons.items():
+        paths[name] = os.path.join(paths['annotations'], f'{name}.json')
+        with open(paths[name], 'w') as f:
+            json.dump(data, f)
+    return paths
+
+
+# the coco phase's configurations: cocokp's and cocodet's published sizes
+# (``square_edge`` 385 and 513 for training, ``eval_long_edge`` 641), the
+# cocokp augmentations with both rotations and blur on
+COCOKP_TRAIN_EDGE = 385
+COCODET_TRAIN_EDGE = 513
+COCO_EVAL_EDGE = 641
+COCOKP_AUGMENT = ('--cocokp-orientation-invariant=0.6', '--cocokp-blur=0.5')
+# the transforms that must have run in the cocokp training epoch
+COCO_MUST_RUN = ('Blur', 'RotateBy90', 'RotateUniform')
+
+
+def coco_data_flags(name: str, paths: dict, ann: str) -> list:
+    return [f'--{name}-{split}-{kind}={paths[key]}'
+            for split in ('train', 'val')
+            for kind, key in (('annotations', ann), ('image-dir', 'images'))]
+
+
+class HostTimes:
+    """Host seconds per transform class (the steps of a data module's
+    chain, the transforms inside ``RandomApply`` and ``RandomChoice``), the
+    image reads and the collate, summed; and the calls per class."""
+
+    def __init__(self):
+        self.seconds, self.calls = {}, {}
+
+    def timed(self, name: str, fn):
+        def run(*args, **kwargs):
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.seconds[name] = (self.seconds.get(name, 0.0)
+                                  + time.perf_counter() - start)
+            self.calls[name] = self.calls.get(name, 0) + 1
+            return out
+        return run
+
+    def wrap(self, t):
+        """``t`` with every leaf transform timed under its class name."""
+        if hasattr(t, 'transform'):
+            t.transform = self.wrap(t.transform)
+            return t
+        if type(t).__name__ in ('Compose', 'RandomChoice'):
+            t.transforms = [self.wrap(c) for c in t.transforms]
+            return t
+        return self.timed(type(t).__name__, t)
+
+
+def coco_train(port, card: str, argv: list, label: str,
+               times: HostTimes) -> dict:
+    """``python -m openpifpaf_tpu_torch.train`` run in this process
+    (``train.main(argv)``), so that it can be measured: each step's ms by
+    CUDA events around ``Trainer.train_step``, the host's ms per batch
+    (image reads, the transform chain and the encoders, the collate; the
+    loader runs in the trainer's process) split by transform class into
+    ``times``.  Every logged loss finite."""
+    from openpifpaf_tpu_torch import train as train_mod
+    from openpifpaf_tpu_torch.datasets import DataModule
+    from openpifpaf_tpu_torch.plugins.coco import CocoDataset
+
+    step_ms, host_ms = [], []
+    train_step, loader = port.training.Trainer.train_step, DataModule.loader
+    getitem = CocoDataset.__getitem__
+
+    def timed_step(self, images, targets):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = train_step(self, images, targets)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        return out
+
+    def timed_loader(self, dataset, *, shuffle, **kwargs):
+        out = loader(self, dataset, shuffle=shuffle, **kwargs)
+        if shuffle:   # the train loader's, not the val loader's
+            dataset.preprocess = times.wrap(dataset.preprocess)
+            dataset.read_image = times.timed('read_image',
+                                             dataset.read_image)
+            out.collate_fn = times.timed('collate', out.collate_fn)
+        return out
+
+    batch_start = [None]
+
+    def timed_getitem(self, index):
+        if batch_start[0] is None:
+            batch_start[0] = time.perf_counter()
+        return getitem(self, index)
+
+    def step_after_batch(self, images, targets):
+        host_ms.append((time.perf_counter() - batch_start[0]) * 1e3)
+        batch_start[0] = None
+        return timed_step(self, images, targets)
+
+    port.training.Trainer.train_step = step_after_batch
+    DataModule.loader = timed_loader
+    CocoDataset.__getitem__ = timed_getitem
+    start = time.perf_counter()
+    try:
+        train_mod.main(argv)
+    finally:
+        port.training.Trainer.train_step = train_step
+        DataModule.loader = loader
+        CocoDataset.__getitem__ = getitem
+    out = argv[argv.index('--output') + 1]
+    with open(out + '.log') as f:
+        lines = [json.loads(line) for line in f]
+    losses = [l['loss'] for l in lines if l['type'] == 'train']
+    val = [l['loss'] for l in lines if l['type'] == 'val-epoch']
+    print(f'{label} train CLI (train.main in this process): '
+          f'{time.perf_counter() - start:.1f} s; {len(step_ms)} steps, ms '
+          f'per step (CUDA events) {[round(t, 3) for t in step_ms]}; host '
+          f'ms per batch (reads, transforms, encoders, collate) '
+          f'{[round(t, 1) for t in host_ms]}; losses {losses}, val {val} '
+          f'({card})', flush=True)
+    if not losses or not all(np.isfinite(losses + val)) or not val:
+        raise AssertionError(f'{label} train: log {lines}')
+    if not os.path.exists(out + '.npz'):
+        raise AssertionError(f'{label} train: no checkpoint')
+    return dict(step_ms=step_ms, host_ms=host_ms, losses=losses)
+
+
+def print_host_split(times: HostTimes, n_batches: int, label: str) -> None:
+    total = sum(times.seconds.values())
+    split = {name: round(s * 1e3 / n_batches, 1)
+             for name, s in sorted(times.seconds.items(),
+                                   key=lambda kv: -kv[1])}
+    print(f'{label} host ms per batch by class (summed over the epoch, '
+          f'per batch): {split}; calls {times.calls}; total '
+          f'{total * 1e3 / n_batches:.1f}', flush=True)
+
+
+def coco_eval_cli(checkpoint: str, flags: list, out: str,
+                  n_images: int) -> dict:
+    """``python -m openpifpaf_tpu_torch.eval --dataset cocokp`` on the
+    card at ``eval_long_edge``, scored with the annotation file."""
+    start = time.perf_counter()
+    result = subprocess.run(
+        [sys.executable, '-m', 'openpifpaf_tpu_torch.eval',
+         '--dataset=cocokp', f'--checkpoint={checkpoint}',
+         f'--batch-size={EVAL_BATCH}', '-o', out] + flags,
+        cwd=REPO, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO), timeout=600)
+    if result.returncode != 0:
+        raise AssertionError(f'cocokp eval CLI failed:\n'
+                             f'{result.stderr[-3000:]}')
+    with open(out + '.stats.json') as f:
+        stats = json.load(f)
+    keys = ['n_images', 'total_time', 'nn_time', 'decoder_time',
+            'images_per_second', 'stats', 'text_labels']
+    print(f'cocokp eval CLI on the card: exit 0 in '
+          f'{time.perf_counter() - start:.1f} s; stats '
+          f'{dict(zip(stats["text_labels"], stats["stats"]))}, '
+          f'{stats["n_images"]} images, {stats["images_per_second"]} '
+          f'images/s', flush=True)
+    if (list(stats) != keys or stats['n_images'] != n_images
+            or stats['text_labels'] != ['AP', 'AP0.5', 'AP0.75', 'APM', 'APL',
+                                        'AR', 'AR0.5', 'AR0.75', 'ARM', 'ARL']
+            or not all(-1.0 <= v <= 1.0 for v in stats['stats'])):
+        raise AssertionError(f'cocokp eval CLI stats: {stats}')
+    return stats
+
+
+def coco_eval_run(port, predictor, dm, label: str, n_images: int) -> dict:
+    """``eval_run`` of ``dm`` with the counts asserted: per batch K1 once
+    and K2 three times (two CUDA kernels per K1 call)."""
+    run = eval_run(port, predictor, dm, label, n_images=n_images)
+    batches = -(-n_images // EVAL_BATCH)
+    want = [[batches, batches * len(SN2K16_CHAINS), n_images]]
+    if run['per_variant'] != want or \
+            run['counts']['k1_cuda'] != 2 * run['counts']['k1']:
+        raise AssertionError(f'{label}: per variant {run["per_variant"]}, '
+                             f'want {want}')
+    print(f'{label}: host syncs per batch '
+          f'{run["counts"]["syncs"] / batches:.1f}', flush=True)
+    return run
+
+
+def coco_kernels(port, predictor, run, label: str) -> dict:
+    """K1 and K2 held to their plain versions and timed on the inputs
+    ``run`` handed them (its first batch)."""
+    captured = run['captured']
+    (key, (args, kwargs)), = [(k, v) for k, v in captured.items()
+                              if k[0] == 'cif_hr']
+    k1 = measure_cif_hr(port.cif_hr, f'{label} F={args[0].shape[1]}', args,
+                        kwargs)
+    k1['shape'] = (f'(B, F, N) {tuple(args[0].shape)} -> '
+                   f'{tuple(kwargs["out_hw"])}')
+    chains = []
+    basenet = predictor.model.module.basenet
+    for stage, n, side, c in SN2K16_CHAINS:
+        a, b, chain = captured['pair_chain', (EVAL_BATCH, side, side, c)]
+        modules = [getattr(basenet, f'stage{stage}_{i}')
+                   for i in range(1, n + 1)]
+        chains.append(measure_pair_chain(
+            port.pair_chain, f'{label} stage {stage}', a, b, chain, modules))
+    k2 = sum_chains(chains)
+    k2['shape'] = [[EVAL_BATCH, side, side, c]
+                   for _, _, side, c in SN2K16_CHAINS]
+    return dict(k1=k1, k2=k2)
+
+
+def cocodet_eval(port, card: str, checkpoint: str) -> dict:
+    """(d2) the trained cocodet checkpoint through ``Evaluator`` on the
+    cocodet eval loader at 641 px: its CifDet head calibrated on the first
+    batch (``calibrate_det_head``) and decoded at
+    ``DET_SEED_THRESHOLD``, K1 once (F = 80) and K2 three times per batch,
+    no host sync; two images of the first batch held to the CPU decode
+    (``hold_dets``); K1 held and timed on the inputs of that batch."""
+    dm = port.datasets.factory('cocodet')
+    predictor = port.Predictor(checkpoint=checkpoint, device='cuda',
+                               bf16=True)
+    meta = predictor.model.head_metas[0]
+    images, _, _ = next(iter(dm.eval_loader()))
+    print(f'cocodet: head calibrated on the first eval batch: '
+          f'{calibrate_det_head(predictor.model, meta, images.cuda())}',
+          flush=True)
+    n_images = len(dm.eval_loader().dataset)
+    cls = port.decoder.CifDet
+    old_threshold, cls.seed_threshold = cls.seed_threshold, DET_SEED_THRESHOLD
+    try:
+        run = coco_eval_run(port, predictor, dm, 'cocodet eval', n_images)
+        fields, on_card = run['decoded'][0]
+        cpu = cpu_det_decode(port, meta, fields[0][:DETECT_HELD])
+    finally:
+        cls.seed_threshold = old_threshold
+    if run['counts']['syncs']:
+        raise AssertionError('cocodet eval: the CifDet decode synced')
+    hold_dets([t[:DETECT_HELD] for t in on_card], cpu, 'cocodet eval batch 0')
+    (args, kwargs), = [v for k, v in run['captured'].items()
+                       if k[0] == 'cif_hr']
+    k1 = measure_cif_hr(port.cif_hr, 'cocodet eval F=80', args, kwargs)
+    k1['shape'] = (f'(B, F, N) {tuple(args[0].shape)} -> '
+                   f'{tuple(kwargs["out_hw"])}')
+    return dict(counts=run['counts'], k1=k1, stats=run['stats'])
+
+
+def crowdpose_eval(port, card: str, paths: dict) -> dict:
+    """(e) sn2k16 with crowdpose's heads (14 x 5, 15 x 9), bias-shifted,
+    through ``Evaluator`` on one eval batch of the CrowdPose json at
+    641 px: the crowdposetools stats with AP per crowd-index band (each
+    band holds ground truth), K1 once and K2 three times."""
+    from openpifpaf_tpu_torch.plugins.crowdpose import CrowdPose
+
+    saved = {k: getattr(CrowdPose, k) for k in
+             ('eval_annotations', 'eval_image_dir')}
+    CrowdPose.eval_annotations = paths['crowdpose']
+    CrowdPose.eval_image_dir = paths['images']
+    try:
+        dm = CrowdPose()
+        loader = dm.eval_loader()
+        loader.dataset.ids = loader.dataset.ids[:EVAL_BATCH]
+        dm.eval_loader = lambda **_: loader
+        predictor = shifted_predictor(port, 'shufflenetv2k16', dm.head_metas)
+        run = coco_eval_run(port, predictor, dm, 'crowdpose eval',
+                            EVAL_BATCH)
+        metric, = dm.metrics()
+    finally:
+        for k, v in saved.items():
+            setattr(CrowdPose, k, v)
+    stats = dict(zip(run['stats']['text_labels'], run['stats']['stats']))
+    print(f'crowdpose eval, one batch of {EVAL_BATCH} at {COCO_EVAL_EDGE} '
+          f'px: stats {stats} ({card})', flush=True)
+    if (list(stats) != metric.text_labels_crowd
+            or not all(stats[k] >= 0.0 for k in ('APE', 'APM', 'APH'))):
+        raise AssertionError(f'crowdpose eval: bands {stats}')
+    (args, kwargs), = [v for k, v in run['captured'].items()
+                       if k[0] == 'cif_hr']
+    k1 = measure_cif_hr(port.cif_hr, 'crowdpose eval F=14', args, kwargs)
+    k1['shape'] = (f'(B, F, N) {tuple(args[0].shape)} -> '
+                   f'{tuple(kwargs["out_hw"])}')
+    return dict(counts=run['counts'], k1=k1)
+
+
+def coco_phase(port, card: str, tmp: str) -> dict:
+    """(a) the synthesized tree; (b) cocokp trained for one epoch with its
+    full augmentation chain; (c) the eval CLI on that checkpoint and a
+    bias-shifted sn2k16 through ``Evaluator`` with K1 and K2 counted, its
+    first batch's decode held to the CPU's and K1/K2 held and timed on
+    its inputs; (d) cocodet trained for one epoch and evaluated through
+    K1 at F = 80; (e) crowdpose's bands on one eval batch."""
+    start = time.perf_counter()
+    port.plugins.register()
+    paths = write_coco_tree(os.path.join(tmp, 'coco'))
+    n_train = len(port.coco.CocoDataset(
+        paths['images'], paths['person_keypoints'], annotation_filter=True,
+        min_kp_anns=1, category_ids=[1]))
+    print(f'coco tree: {len(COCO_SIZES)} PNG images of 640x480 and 480x640 '
+          f'written in {time.perf_counter() - start:.1f} s; cocokp keeps '
+          f'{n_train} (annotation filter, min_kp_anns 1)', flush=True)
+    torch.backends.cudnn.benchmark = True
+
+    # (b) cocokp
+    kp_flags = coco_data_flags('cocokp', paths, 'person_keypoints')
+    out = os.path.join(tmp, 'cocokp')
+    times = HostTimes()
+    train = coco_train(port, card, [
+        '--dataset=cocokp', '--basenet=shufflenetv2k16',
+        f'--cocokp-square-edge={COCOKP_TRAIN_EDGE}', *COCOKP_AUGMENT,
+        f'--batch-size={TRAIN_BATCH}', '--epochs=1', '--log-interval=1',
+        '--output', out] + kp_flags, 'cocokp', times)
+    print_host_split(times, len(train['host_ms']), 'cocokp train')
+    missing = [name for name in COCO_MUST_RUN if not times.calls.get(name)]
+    if missing or len(train['step_ms']) != n_train // TRAIN_BATCH:
+        raise AssertionError(f'cocokp train: {missing} never ran, or '
+                             f'{len(train["step_ms"])} steps')
+
+    # (c) cocokp eval: the CLI, then the bias-shifted model
+    coco_eval_cli(out + '.npz', kp_flags, out + '.eval', n_train)
+    dm = port.datasets.factory('cocokp')
+    predictor = shifted_predictor(port, 'shufflenetv2k16', dm.head_metas)
+    run = coco_eval_run(port, predictor, dm, 'cocokp eval', n_train)
+    fields, on_card = run['decoded'][0]
+    hold_at_budget(port, predictor.decoder, on_card, fields,
+                   'cocokp eval batch 0')
+    kp_kernels = coco_kernels(port, predictor, run, 'cocokp eval')
+    del predictor
+    torch.cuda.empty_cache()
+
+    # (d) cocodet
+    det_out = os.path.join(tmp, 'cocodet')
+    det_times = HostTimes()
+    coco_train(port, card, [
+        '--dataset=cocodet', '--basenet=shufflenetv2k16',
+        f'--cocodet-square-edge={COCODET_TRAIN_EDGE}',
+        f'--batch-size={TRAIN_BATCH}', '--epochs=1', '--log-interval=1',
+        '--output', det_out] + coco_data_flags('cocodet', paths, 'instances'),
+        'cocodet', det_times)
+    det = cocodet_eval(port, card, det_out + '.npz')
+    torch.cuda.empty_cache()
+
+    # (e) crowdpose
+    crowd = crowdpose_eval(port, card, paths)
+    print(f'coco phase: {time.perf_counter() - start:.1f} s ({card})',
+          flush=True)
+    return dict(train=train, times=times, eval=run['counts'],
+                k1=kp_kernels['k1'], k2=kp_kernels['k2'], det=det,
+                crowd=crowd)
+
+
 class _Port:
     """The port's modules, imported after the card check."""
 
     def __init__(self):
         from openpifpaf_tpu_torch import (datasets, decoder, headmeta,
                                           image_io, kernels, losses, models,
-                                          ops, training, video)
+                                          ops, plugins, training, video)
         from openpifpaf_tpu_torch import eval as eval_mod
         from openpifpaf_tpu_torch.models import fused_shufflenet
         from openpifpaf_tpu_torch.ops import cif_hr, common, pair_chain
-        from openpifpaf_tpu_torch.plugins import posetrack, toykp
+        from openpifpaf_tpu_torch.plugins import coco, posetrack, toykp
         from openpifpaf_tpu_torch.plugins.coco import constants
         from openpifpaf_tpu_torch.plugins.wholebody import constants as wb
         from openpifpaf_tpu_torch.predictor import Predictor
@@ -3182,6 +3735,7 @@ class _Port:
         self.wb = wb
         self.image_io, self.posetrack, self.video = image_io, posetrack, video
         self.Predictor = Predictor
+        self.coco, self.plugins = coco, plugins
 
 
 def main() -> int:
@@ -3263,16 +3817,21 @@ def main() -> int:
         detected = detect_phase(port, card, tmp)
     phase('backbones')
     backbones = backbones_phase(port, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase('coco')
+        coco = coco_phase(port, card, tmp)
     k1_backbones = [r['k1'] for r in backbones['served'].values()]
     max_err = max([max_err, wholebody['k1']['max_abs_err'],
                    tracked['k1']['max_abs_err'],
                    detected['k1']['max_abs_err'],
                    detected['k1_cifar10']['max_abs_err']]
                   + [r['max_abs_err'] for r in k1_backbones]
+                  + [r['max_abs_err'] for r in (coco['k1'], coco['det']['k1'],
+                                                coco['crowd']['k1'])]
                   + [r['max_abs_err'] for kind, r in evaluated['checks']
                      if kind == 'cif_hr'])
     k2_err = max([k2_err, wholebody['k2']['max_abs_err'],
-                  tracked['k2']['max_abs_err']]
+                  tracked['k2']['max_abs_err'], coco['k2']['max_abs_err']]
                  + [r['max_abs_err'] for kind, r in evaluated['checks']
                     if kind == 'pair_chain'])
     eval_counts = evaluated['runs']['multi-scale force-complete']['counts']
@@ -3301,6 +3860,12 @@ def main() -> int:
                                backbones['served'].items()},
         'backbones': {name: at_new_shape(r['k1']) for name, r in
                       backbones['served'].items()},
+        'coco_launches': {'cocokp': coco['eval']['k1'],
+                          'cocodet': coco['det']['counts']['k1'],
+                          'crowdpose': coco['crowd']['counts']['k1']},
+        'coco': {'cocokp': at_new_shape(coco['k1']),
+                 'cocodet': at_new_shape(coco['det']['k1']),
+                 'crowdpose': at_new_shape(coco['crowd']['k1'])},
         'max_abs_err': max_err, 'max_abs_diff': max_err,
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
@@ -3319,6 +3884,10 @@ def main() -> int:
         'detect_launches': detected['counts']['k2'],
         'backbones_launches': {name: r['counts']['k2'] for name, r in
                                backbones['served'].items()},
+        'coco_launches': {'cocokp': coco['eval']['k2'],
+                          'cocodet': coco['det']['counts']['k2'],
+                          'crowdpose': coco['crowd']['counts']['k2']},
+        'coco': {'cocokp': at_new_shape(coco['k2'])},
         'max_abs_err': k2_err, 'max_abs_diff': k2_err,
         'ms': k2_main['ms'], 'plain_ms': k2_main['plain_ms'],
         'bound_ms': k2_main['bound_ms'], 'bound_by': k2_main['bound_by'],

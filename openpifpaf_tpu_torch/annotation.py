@@ -53,12 +53,17 @@ class Annotation(Base):
                  *,
                  sigmas: Optional[Sequence[float]] = None,
                  score_weights: Optional[Sequence[float]] = None,
-                 category_id: int = 1):
+                 categories: Optional[Sequence[str]] = None,
+                 category_id: int = 1,
+                 suppress_score_index: Optional[int] = None):
         self.keypoints = list(keypoints)
         self.skeleton = [tuple(s) for s in skeleton]
         self.sigmas = (np.asarray(sigmas, dtype=np.float32)
                        if sigmas is not None else None)
+        self.categories = categories
         self.category_id = category_id
+        # a keypoint whose confidence the score leaves out
+        self.suppress_score_index = suppress_score_index
 
         n = len(self.keypoints)
         self.data = np.zeros((n, 3), dtype=np.float32)
@@ -78,10 +83,14 @@ class Annotation(Base):
     @property
     def score(self) -> float:
         """Weighted pose score: confidences sorted descending, weighted by
-        ``score_weights`` and normalized by the weight sum."""
+        ``score_weights`` and normalized by the weight sum; the keypoint
+        ``suppress_score_index`` counts as 0."""
         if self.fixed_score is not None:
             return float(self.fixed_score)
-        v_sorted = np.sort(self.data[:, 2])[::-1]
+        v = self.data[:, 2].copy()
+        if self.suppress_score_index is not None:
+            v[self.suppress_score_index] = 0.0
+        v_sorted = np.sort(v)[::-1]
         return float((v_sorted * self.score_weights).sum()
                      / max(1e-8, self.score_weights.sum()))
 
@@ -117,14 +126,26 @@ class Annotation(Base):
     def inverse_transform(self, meta) -> 'Annotation':
         """Map back to original image coordinates using transform meta
         (``x_original = (x_transformed + offset) / scale``), then undo a
-        horizontal flip (mirror on the original canvas, swap left/right
-        rows).  The port has no rotation transform."""
+        rotation (``RotateBy90``, ``RotateUniform``) and a horizontal flip
+        (mirror on the original canvas, swap left/right rows)."""
         ann = self.copy()
         ann.data[:, 0] += meta['offset'][0]
         ann.data[:, 1] += meta['offset'][1]
         ann.data[:, 0] /= meta['scale'][0]
         ann.data[:, 1] /= meta['scale'][1]
         ann.joint_scales /= meta['scale'][0]
+
+        rotation = meta.get('rotation')
+        if isinstance(rotation, dict) and rotation.get('angle', 0.0):
+            rw, rh = rotation['width'], rotation['height']
+            ow = rotation.get('orig_width', rw)
+            oh = rotation.get('orig_height', rh)
+            ang = np.radians(rotation['angle'])
+            rot = np.array([[np.cos(ang), -np.sin(ang)],
+                            [np.sin(ang), np.cos(ang)]], dtype=np.float32)
+            c_new = np.array([(rw - 1) / 2.0, (rh - 1) / 2.0], np.float32)
+            c_old = np.array([(ow - 1) / 2.0, (oh - 1) / 2.0], np.float32)
+            ann.data[:, :2] = (ann.data[:, :2] - c_new) @ rot.T + c_old
 
         if meta.get('hflip', False):
             # after undoing offset/scale the frame is the original canvas
@@ -137,7 +158,9 @@ class Annotation(Base):
     def copy(self) -> 'Annotation':
         out = Annotation(self.keypoints, self.skeleton, sigmas=self.sigmas,
                          score_weights=self.score_weights,
-                         category_id=self.category_id)
+                         categories=self.categories,
+                         category_id=self.category_id,
+                         suppress_score_index=self.suppress_score_index)
         out.data = np.copy(self.data)
         out.joint_scales = np.copy(self.joint_scales)
         out.fixed_score = self.fixed_score

@@ -31,7 +31,7 @@ def factory(dataset_name: str) -> DataModule:
 
 def cli(parser: argparse.ArgumentParser) -> None:
     group = parser.add_argument_group('generic data module parameters')
-    group.add_argument('--dataset', default='toykp',
+    group.add_argument('--dataset', default='cocokp',
                        help=f'dataset to use: {sorted(DATAMODULES)}')
     group.add_argument('--loader-workers', default=DataModule.loader_workers,
                        type=int, help='number of data loading workers')

@@ -1,14 +1,27 @@
-"""Dataset plugins: the COCO and WholeBody keypoint constants and the
-synthetic data modules (toykp, toycrowd, toywb, toykpst, frame pairs for
+"""Dataset plugins: the COCO-format data modules (cocokp, cocodet and,
+on ``generic_kp``, crowdpose, wholebody, animal and apollo) and the
+synthetic ones (toykp, toycrowd, toywb, toykpst with frame pairs for
 tracking, and cifar10, detection)."""
 
 
 def register() -> None:
     """Fill ``datasets.DATAMODULES`` with the port's data modules."""
-    from ..datasets import DATAMODULES  # pylint: disable=import-outside-toplevel
-    from .cifar10 import Cifar10  # pylint: disable=import-outside-toplevel
-    from .posetrack import ToyKpSt  # pylint: disable=import-outside-toplevel
-    from .toykp import ToyCrowd, ToyKp, ToyWb  # pylint: disable=import-outside-toplevel
+    # pylint: disable=import-outside-toplevel
+    from ..datasets import DATAMODULES
+    from .animalpose import AnimalPose
+    from .apollocar3d import ApolloCar3D
+    from .cifar10 import Cifar10
+    from .coco import CocoDet, CocoKp
+    from .crowdpose import CrowdPose
+    from .posetrack import ToyKpSt
+    from .toykp import ToyCrowd, ToyKp, ToyWb
+    from .wholebody import WholeBody
+    DATAMODULES['cocokp'] = CocoKp
+    DATAMODULES['cocodet'] = CocoDet
+    DATAMODULES['crowdpose'] = CrowdPose
+    DATAMODULES['wholebody'] = WholeBody
+    DATAMODULES['animal'] = AnimalPose
+    DATAMODULES['apollo'] = ApolloCar3D
     DATAMODULES['toykp'] = ToyKp
     DATAMODULES['toycrowd'] = ToyCrowd
     DATAMODULES['toywb'] = ToyWb

@@ -18,11 +18,12 @@ class NormalizeAnnotations(Preprocess):
     """Convert raw COCO-style ann dicts into Annotation objects."""
 
     def __init__(self, keypoints, skeleton, *, sigmas=None,
-                 score_weights=None):
+                 score_weights=None, categories=None):
         self.keypoints = keypoints
         self.skeleton = skeleton
         self.sigmas = sigmas
         self.score_weights = score_weights
+        self.categories = categories
 
     def __call__(self, image, anns, meta):
         meta = Preprocess.init_meta(image, meta)
@@ -34,6 +35,7 @@ class NormalizeAnnotations(Preprocess):
             ann = Annotation(self.keypoints, self.skeleton,
                              sigmas=self.sigmas,
                              score_weights=self.score_weights,
+                             categories=self.categories,
                              category_id=raw.get('category_id', 1))
             kps = raw.get('keypoints')
             if kps is not None:

@@ -11,6 +11,7 @@ offset) / scale``.  Images are (3, H, W) float32 tensors in uint8 levels
 
 from __future__ import annotations
 
+import copy
 from typing import List
 
 import numpy as np
@@ -24,10 +25,13 @@ class Preprocess:
 
     @staticmethod
     def init_meta(image, meta=None) -> dict:
-        """``meta`` completed with the defaults for a (3, H, W) image; keys
-        already present win, as in the JAX package."""
+        """``meta`` completed with the defaults for a (3, H, W) image (or
+        an (H, W, 3) array); keys already present win, as in the JAX
+        package."""
         meta = dict(meta) if meta else {}
-        h, w = image.shape[-2:]
+        # an (H, W, 3) array is the JAX package's layout (``video.py``)
+        h, w = (image.shape[:2] if isinstance(image, np.ndarray)
+                else image.shape[-2:])
         defaults = init_meta(w, h)
         for key in ('offset', 'scale', 'rotation', 'valid_area', 'hflip',
                     'width_height'):
@@ -36,6 +40,14 @@ class Preprocess:
         meta.setdefault('original_width_height', meta['width_height'])
         meta.setdefault('horizontal_swap', None)
         return meta
+
+
+class AnnotationCopy(Preprocess):
+    """Deep copies of the annotations, so that the transforms after it do
+    not change the dataset's own."""
+
+    def __call__(self, image, anns, meta):
+        return image, copy.deepcopy(anns), meta
 
 
 def is_box_only(ann) -> bool:

@@ -1,6 +1,6 @@
 """Rescaling transforms.
 
-Port of ``RescaleAbsolute`` and ``RescaleRelative`` of
+Port of ``RescaleAbsolute``, ``RescaleRelative`` and ``ScaleMix`` of
 ``openpifpaf_tpu/transforms/scale.py`` on (3, H, W) tensors, resized by
 ``eval.resize`` (PIL's bilinear within 1 grey level).  ``RescaleRelative``
 draws from the generator it is given (the JAX one from an unseeded
@@ -66,3 +66,39 @@ class RescaleRelative(Preprocess):
         h, w = image.shape[-2:]
         return _rescale(image, anns, meta,
                         (max(2, round(w * sx)), max(2, round(h * sy))))
+
+
+class ScaleMix(Preprocess):
+    """Upscale images whose instances are all small, downscale those whose
+    instances are all large (reference ``transforms/scale.py`` ScaleMix)."""
+
+    def __init__(self, scale_threshold, *, upscale_factor=2.0,
+                 downscale_factor=0.5):
+        self.scale_threshold = scale_threshold
+        self.upscale_factor = upscale_factor
+        self.downscale_factor = downscale_factor
+
+    def __call__(self, image, anns, meta):
+        meta = Preprocess.init_meta(image, meta)
+        scales = []
+        for ann in anns:
+            if getattr(ann, 'iscrowd', False):
+                continue
+            m = ann.data[:, 2] > 0
+            if m.sum() < 2:
+                continue
+            xy = ann.data[m, :2]
+            scales.append(np.sqrt(
+                max(1.0, (xy[:, 0].max() - xy[:, 0].min()))
+                * max(1.0, (xy[:, 1].max() - xy[:, 1].min()))))
+        if not scales:
+            return image, anns, meta
+        h, w = image.shape[-2:]
+        if max(scales) < self.scale_threshold:
+            factor = self.upscale_factor
+        elif min(scales) > self.scale_threshold:
+            factor = self.downscale_factor
+        else:
+            return image, anns, meta
+        return _rescale(image, anns, meta,
+                        (round(w * factor), round(h * factor)))

@@ -2,7 +2,10 @@
 
 - ``openpifpaf_tpu_torch`` and ``chip_smoke.py`` import no ``jax``,
   ``flax``, ``optax``, ``PIL`` or ``openpifpaf_tpu`` (the machine with the
-  card has none of them), the training path included;
+  card has none of them), the training path and the COCO-format data
+  modules included; PIL is reached only through ``importlib`` where the
+  JAX package's behaviour needs it (``image_io``'s JPEG reader,
+  ``transforms.JpegCompression``), never at import;
 - entry points (the predict CLI and the detection decoders among them)
   default to ``device='cuda'`` and raise without CUDA instead of falling
   back to the CPU;
@@ -68,7 +71,17 @@ def test_port_sources_found():
                  'plugins/cifar10/datamodule.py', 'models/resnet.py',
                  'models/mobilenet.py', 'models/squeezenet.py',
                  'models/effnetv2.py', 'models/swin.py', 'models/xcit.py',
-                 'models/botnet.py', 'models/hrformer.py'):
+                 'models/botnet.py', 'models/hrformer.py',
+                 'transforms/base.py', 'transforms/image.py',
+                 'transforms/minsize.py', 'transforms/multi_scale.py',
+                 'transforms/random.py', 'transforms/rotate.py',
+                 'transforms/toannotations.py', 'transforms/unclipped.py',
+                 'transforms/video.py', 'plugins/coco/dataset.py',
+                 'plugins/coco/cocokp.py', 'plugins/coco/cocodet.py',
+                 'plugins/generic_kp.py', 'plugins/crowdpose/__init__.py',
+                 'plugins/crowdpose/constants.py',
+                 'plugins/animalpose/__init__.py',
+                 'plugins/apollocar3d/__init__.py'):
         assert os.path.join(REPO, 'openpifpaf_tpu_torch', name) in files
     assert len(files) > 20
 
@@ -79,6 +92,26 @@ def test_no_forbidden_imports(path):
     bad = [m for m in imported_modules(path)
            if m.split('.')[0] in FORBIDDEN]
     assert not bad, f'{os.path.relpath(path, REPO)} imports {bad}'
+
+
+def lazy_pil_imports(path):
+    """The ``importlib.import_module('PIL...')`` calls of a source."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    return [node.args[0].value for node in ast.walk(tree)
+            if isinstance(node, ast.Call)
+            and getattr(node.func, 'attr', None) == 'import_module'
+            and node.args and isinstance(node.args[0], ast.Constant)
+            and str(node.args[0].value).startswith('PIL')]
+
+
+def test_pil_only_where_the_jax_behaviour_needs_it():
+    """JPEG files and ``JpegCompression`` go through PIL, imported in the
+    call; nothing else reaches it."""
+    users = {os.path.relpath(p, REPO) for p in port_sources()
+             if lazy_pil_imports(p)}
+    assert users == {'openpifpaf_tpu_torch/image_io.py',
+                     'openpifpaf_tpu_torch/transforms/image.py'}
 
 
 def test_import_loads_no_jax_and_builds_nothing():
@@ -113,7 +146,15 @@ def test_import_loads_no_jax_and_builds_nothing():
         'openpifpaf_tpu_torch.models.swin, openpifpaf_tpu_torch.models.xcit, '
         'openpifpaf_tpu_torch.models.botnet, '
         'openpifpaf_tpu_torch.models.hrformer, '
+        'openpifpaf_tpu_torch.transforms, '
+        'openpifpaf_tpu_torch.plugins.coco, '
+        'openpifpaf_tpu_torch.plugins.generic_kp, '
+        'openpifpaf_tpu_torch.plugins.crowdpose, '
+        'openpifpaf_tpu_torch.plugins.wholebody, '
+        'openpifpaf_tpu_torch.plugins.animalpose, '
+        'openpifpaf_tpu_torch.plugins.apollocar3d, '
         'openpifpaf_tpu_torch.kernels as k\n'
+        'import openpifpaf_tpu_torch.plugins as p; p.register()\n'
         f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]\n'
         'assert not bad, bad\n'
         'assert not k._LIBS\n')
