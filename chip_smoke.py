@@ -1,7 +1,7 @@
 """Drive the PyTorch port's predict, train, eval, tracking and detection
 paths on an NVIDIA card, with the dense-connection and 133-keypoint
-WholeBody configurations, every backbone of the registry and the
-COCO-format data modules.
+WholeBody configurations, every backbone of the registry, the
+COCO-format data modules and the PoseTrack training recipe.
 
 Usage (from the repository root, one CUDA card):
 
@@ -159,15 +159,39 @@ Phases, in order; any failure raises and exits non-zero:
    sync), two images held to the CPU decode (``hold_dets``), K1 held and
    timed; (e) crowdpose's heads on one eval batch: the AP of each
    crowd-index band, K1 held and timed at F = 14;
-16. a ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
+16. posetrack: the PoseTrack training recipe with upstream's PoseTrack
+   model, tshufflenetv2k30, bf16, batch 8 pairs at 385 px: (a) a
+   synthesized PoseTrack2018 tree (``write_posetrack_tree``: 3 sequences
+   x 7 PNG frames of 1280x720 per split, two or three people with stable
+   track ids); (b) a seeded shufflenetv2k30 with cocokp's heads written
+   as an upstream torch state dict and converted by ``python -m
+   openpifpaf_tpu_torch.migrate --from-torch``, the converted model's f32
+   forward held to the seeded one within 1e-6 of scale; (c) ``train.main``
+   from that npz on ``--dataset posetrack2018`` (18 pairs, 2 steps) and on
+   ``--dataset cocokpst`` (the coco phase's tree, ``--head-dropout 0.1``),
+   each grafting the checkpoint onto the tracking heads (the transfer's
+   log line asserted), ms per step by CUDA events, the host's ms per batch
+   split by transform class; (d) the eval CLI on the posetrack2018
+   checkpoint (COCO and PoseTrack stats), then a bias-shifted
+   tshufflenetv2k30 through ``Evaluator`` on the posetrack2018 eval loader
+   (K1 once per pair plus once per sequence, K2 three times per batch,
+   counts set to 0 before and read after; pairs/s, ``nn_time``,
+   ``decoder_time``, host syncs per pair, the MOTA), its first four pairs
+   held to the CPU (``hold_tracking_pair``: the current frame's decode
+   stage by stage as WholeBody's, the ids by the CPU ``TrackingPose``), K1 (F = 17,
+   193^2 hr) and K2 (sn2k30's chains at 97, 49 and 25 px, 16 frames) held
+   to their plain versions and timed on its inputs; (e) one cocokp step
+   with ``--cross-talk 0.2 --head-dropout 0.1`` (finite loss) and a
+   ``--head-upsample-stride 2`` model's f32 forward, card vs CPU;
+17. a ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
    serve phase, ``eval_launches`` from the multi-scale eval,
    ``dense_launches``, ``wholebody_launches``, ``tracking_launches``,
-   ``detect_launches``, ``backbones_launches`` (per served backbone) and
-   ``coco_launches`` (per data module) from those phases' runs,
-   ``wholebody``, ``tracking``, ``detect``, ``detect_cifar10``,
-   ``backbones`` and ``coco`` its hold and times at those shapes), the
-   card's name and power limit, then the last line ``{"ok": true,
-   "device": {...}}``.
+   ``detect_launches``, ``backbones_launches`` (per served backbone),
+   ``coco_launches`` (per data module) and ``posetrack_launches`` from
+   those phases' runs, ``wholebody``, ``tracking``, ``detect``,
+   ``detect_cifar10``, ``backbones``, ``coco`` and ``posetrack`` its hold
+   and times at those shapes), the card's name and power limit, then the
+   last line ``{"ok": true, "device": {...}}``.
 
 It imports only the port, torch and numpy.
 """
@@ -177,6 +201,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import logging
 import os
 import re
 import shutil
@@ -3372,6 +3397,97 @@ def write_coco_tree(root: str, sizes=COCO_SIZES, seed: int = 0) -> dict:
     return paths
 
 
+# PoseTrack2018's common frame size, and the tree's cut: 3 sequences of 7
+# frames per split
+POSETRACK_SIZE = (1280, 720)
+POSETRACK_SEQUENCES = 3
+POSETRACK_FRAMES = 7
+
+
+def posetrack_person(pose, cx, cy, scale, w, h):
+    """(17, 3) PoseTrack keypoints of an upright person ``scale`` px tall
+    standing on (cx, cy + scale / 2); keypoints outside the frame are
+    unlabelled (0, 0, 0)."""
+    kp = np.zeros((len(pose), 3), np.float32)
+    kp[:, 0] = pose[:, 0] * scale / 9.7 + cx
+    kp[:, 1] = (9.7 - pose[:, 1]) * scale / 9.7 + cy - scale / 2
+    kp[:, 2] = 2.0
+    outside = ((kp[:, 0] < 0) | (kp[:, 0] > w - 1) | (kp[:, 1] < 0)
+               | (kp[:, 1] > h - 1))
+    kp[outside] = 0.0
+    return kp
+
+
+def write_posetrack_tree(root: str, sequences: int = POSETRACK_SEQUENCES,
+                         frames: int = POSETRACK_FRAMES,
+                         size=POSETRACK_SIZE, seed: int = 0) -> dict:
+    """A PoseTrack2018 tree in its published layout: for each split
+    (``train``, ``val``) ``sequences`` sequences of ``frames`` PNG frames
+    of ``size`` (w, h) under ``images/<split>/<sequence>/`` and one json
+    per sequence under ``annotations/<split>/`` (``images`` with
+    ``frame_id``, ``annotations`` with ``track_id``).  Two or three people
+    per sequence walk across the frames with stable track ids, rendered
+    as the COCO tree's people (a blob per labelled keypoint) in
+    PoseTrack's keypoint order.  The first frame of each sequence is
+    unannotated, as is common in PoseTrack, so each sequence gives
+    ``frames - 1`` annotated pairs.  Returns the paths."""
+    from openpifpaf_tpu_torch import image_io
+    from openpifpaf_tpu_torch.plugins.posetrack import constants
+
+    w, h = size
+    pose = np.asarray(constants.UPRIGHT_POSE, np.float32)
+    colors = np.random.default_rng(12345).integers(
+        64, 255, (len(constants.KEYPOINTS), 3))
+    var = 4.0 * (min(w, h) / 161.0) ** 2
+    paths = dict(root=root)
+    for split_i, split in enumerate(('train', 'val')):
+        ann_dir = os.path.join(root, 'annotations', split)
+        os.makedirs(ann_dir, exist_ok=True)
+        paths[split] = os.path.join(ann_dir, '*.json')
+        for s in range(sequences):
+            seq_id = 1000 * split_i + s + 1
+            name = f'{seq_id:06d}_mpii_{split}'
+            rel_dir = f'images/{split}/{name}'
+            os.makedirs(os.path.join(root, rel_dir), exist_ok=True)
+            rng = np.random.default_rng((seed, split_i, s))
+            people = [dict(c=np.array([rng.uniform(0.15, 0.85) * w,
+                                       rng.uniform(0.3, 0.6) * h]),
+                           v=rng.uniform(-0.012, 0.012, 2) * w,
+                           scale=rng.uniform(0.3, 0.5) * h)
+                      for _ in range(int(rng.integers(2, 4)))]
+            images, annotations = [], []
+            for frame in range(frames):
+                file_name = f'{rel_dir}/{frame:06d}.png'
+                image_id = 100 * seq_id + frame
+                images.append(dict(id=image_id, frame_id=frame,
+                                   file_name=file_name,
+                                   has_labeled_person=frame > 0,
+                                   is_labeled=frame > 0))
+                image = rng.integers(0, 60, (h, w, 3)).astype(np.float32)
+                for track_id, p in enumerate(people):
+                    cx, cy = p['c'] + frame * p['v']
+                    kp = posetrack_person(pose, cx, cy, p['scale'], w, h)
+                    render_blobs(image, kp, colors, var)
+                    labeled = kp[kp[:, 2] > 0]
+                    if frame == 0 or not len(labeled):
+                        continue
+                    x0, y0 = labeled[:, :2].min(0)
+                    x1, y1 = labeled[:, :2].max(0)
+                    annotations.append(dict(
+                        id=len(annotations) + 1, image_id=image_id,
+                        track_id=track_id, category_id=1, iscrowd=0,
+                        keypoints=[round(float(v), 2)
+                                   for v in kp.reshape(-1)],
+                        bbox=[round(float(v), 2)
+                              for v in (x0, y0, x1 - x0, y1 - y0)]))
+                image_io.write_png(os.path.join(root, file_name),
+                                   np.clip(image, 0, 255).astype(np.uint8))
+            with open(os.path.join(ann_dir, f'{name}.json'), 'w') as f:
+                json.dump(dict(images=images, annotations=annotations,
+                               categories=[dict(id=1, name='person')]), f)
+    return paths
+
+
 # the coco phase's configurations: cocokp's and cocodet's published sizes
 # (``square_edge`` 385 and 513 for training, ``eval_long_edge`` 641), the
 # cocokp augmentations with both rotations and blur on
@@ -3415,24 +3531,30 @@ class HostTimes:
         if type(t).__name__ in ('Compose', 'RandomChoice'):
             t.transforms = [self.wrap(c) for c in t.transforms]
             return t
+        if type(t).__name__ == 'PairCompose':    # posetrack2018's chain
+            t.frame_steps = [self.wrap(c) for c in t.frame_steps]
+            t.pair_steps = [self.wrap(c) for c in t.pair_steps]
+            return t
         return self.timed(type(t).__name__, t)
 
 
 def coco_train(port, card: str, argv: list, label: str,
-               times: HostTimes) -> dict:
+               times: HostTimes, dataset_cls=None) -> dict:
     """``python -m openpifpaf_tpu_torch.train`` run in this process
     (``train.main(argv)``), so that it can be measured: each step's ms by
     CUDA events around ``Trainer.train_step``, the host's ms per batch
     (image reads, the transform chain and the encoders, the collate; the
     loader runs in the trainer's process) split by transform class into
-    ``times``.  Every logged loss finite."""
+    ``times``.  Every logged loss finite.  ``dataset_cls``: the data
+    module's dataset (``CocoDataset`` by default)."""
     from openpifpaf_tpu_torch import train as train_mod
     from openpifpaf_tpu_torch.datasets import DataModule
     from openpifpaf_tpu_torch.plugins.coco import CocoDataset
 
+    dataset_cls = dataset_cls or CocoDataset
     step_ms, host_ms = [], []
     train_step, loader = port.training.Trainer.train_step, DataModule.loader
-    getitem = CocoDataset.__getitem__
+    getitem = dataset_cls.__getitem__
 
     def timed_step(self, images, targets):
         start = torch.cuda.Event(enable_timing=True)
@@ -3467,14 +3589,14 @@ def coco_train(port, card: str, argv: list, label: str,
 
     port.training.Trainer.train_step = step_after_batch
     DataModule.loader = timed_loader
-    CocoDataset.__getitem__ = timed_getitem
+    dataset_cls.__getitem__ = timed_getitem
     start = time.perf_counter()
     try:
         train_mod.main(argv)
     finally:
         port.training.Trainer.train_step = train_step
         DataModule.loader = loader
-        CocoDataset.__getitem__ = getitem
+        dataset_cls.__getitem__ = getitem
     out = argv[argv.index('--output') + 1]
     with open(out + '.log') as f:
         lines = [json.loads(line) for line in f]
@@ -3708,7 +3830,440 @@ def coco_phase(port, card: str, tmp: str) -> dict:
           flush=True)
     return dict(train=train, times=times, eval=run['counts'],
                 k1=kp_kernels['k1'], k2=kp_kernels['k2'], det=det,
-                crowd=crowd)
+                crowd=crowd, paths=paths)
+
+
+# -------------------------------------------------------------- posetrack
+# the posetrack phase: upstream's PoseTrack model, tshufflenetv2k30, in
+# bf16 at batch 8 pairs and PoseTrack's square edge 385, trained from a
+# converted upstream-format checkpoint through the head transfer
+POSETRACK_BASENET = 'tshufflenetv2k30'
+POSETRACK_EDGE = 385
+POSETRACK_HELD = 4      # pairs of the first eval batch held to the CPU
+# sn2k30's stride-1 chains at 385 px: (stage, blocks, side, half-width C)
+SN2K30_CHAINS_385 = ((2, 7, 97, 256), (3, 15, 49, 512), (4, 5, 25, 1024))
+CONVERTER_TOL = 1e-6    # of the output scale
+HEAD_OPTIONS_TOL = 1e-4     # card vs CPU, f32, of the output scale
+COCO_LABELS = ['AP', 'AP0.5', 'AP0.75', 'APM', 'APL', 'AR', 'AR0.5',
+               'AR0.75', 'ARM', 'ARL']
+
+
+class LogLines(logging.Handler):
+    """The messages of one logger, kept while the handler is attached."""
+
+    def __init__(self, name: str):
+        super().__init__(logging.INFO)
+        self.logger = logging.getLogger(name)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+
+
+def tf32_off():
+    """TF32 off for f32 holds; returns the settings to restore."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return saved
+
+
+def restore_tf32(saved) -> None:
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+        saved
+
+
+def scaled_difference(got, want) -> float:
+    """max |got - want| over the heads, each over max(1, |want|)."""
+    return max(float((g.float() - w.float()).abs().max())
+               / max(1.0, float(w.abs().max())) for g, w in zip(got, want))
+
+
+def posetrack_converter(port, tmp: str, card: str) -> str:
+    """(b) a seeded shufflenetv2k30 with cocokp's heads written as an
+    upstream torch state dict (``converter.to_torch_state_dict``,
+    ``torch.save``), converted by ``python -m openpifpaf_tpu_torch.migrate
+    --from-torch``; the npz's model built on the card, its f32 forward
+    held to the seeded model's.  Returns the npz."""
+    from openpifpaf_tpu_torch.models import checkpoint, converter
+
+    metas = port.datasets.factory('cocokp').head_metas
+    seeded = port.models.factory('shufflenetv2k30', metas, device='cuda',
+                                 bf16=False, seed=0)
+    state_dict = converter.to_torch_state_dict(
+        port.models.to_jax_variables(seeded.module.state_dict()),
+        basenet_name='shufflenetv2k30')
+    source = os.path.join(tmp, 'shufflenetv2k30-upstream.pt')
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in state_dict.items()}, source)
+    out = os.path.join(tmp, 'shufflenetv2k30-converted.npz')
+    start = time.perf_counter()
+    result = subprocess.run(
+        [sys.executable, '-m', 'openpifpaf_tpu_torch.migrate',
+         '--from-torch', source, '--basenet', 'shufflenetv2k30',
+         '--dataset', 'cocokp', '--output', out],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=300)
+    if result.returncode != 0:
+        raise AssertionError(f'migrate CLI failed:\n{result.stderr[-3000:]}')
+    migrate_s = time.perf_counter() - start
+    converted = port.models.factory(checkpoint=out, device='cuda',
+                                    bf16=False)
+    x = torch.from_numpy(np.random.default_rng(11).normal(
+        size=(2, 3, POSETRACK_EDGE, POSETRACK_EDGE)).astype(np.float32))
+    saved = tf32_off()
+    try:
+        diff = scaled_difference(converted(x.cuda()), seeded(x.cuda()))
+    finally:
+        restore_tf32(saved)
+    header, _ = checkpoint.load(out)
+    print(f'converter: {len(state_dict)} upstream tensors '
+          f'({os.path.getsize(source) / 2**20:.1f} MiB) through the migrate '
+          f'CLI in {migrate_s:.1f} s; the converted model\'s f32 forward at '
+          f'{POSETRACK_EDGE} px vs the seeded model: max |d| / scale '
+          f'{diff:.3e} (limit {CONVERTER_TOL}); header extra '
+          f'{header["extra"]} ({card})', flush=True)
+    if diff > CONVERTER_TOL or header['extra'] != {'converted_from': source}:
+        raise AssertionError('converter: forward or header differ')
+    del seeded, converted
+    return out
+
+
+def posetrack_train(port, card: str, argv: list, label: str, dataset_cls,
+                    transferred: list, fresh: list) -> dict:
+    """``coco_train`` of a tracking data module from a single-frame
+    checkpoint: the transfer's log line must name ``transferred`` and
+    ``fresh``, the checkpoint must hold the CIF, CAF and TCAF heads."""
+    from openpifpaf_tpu_torch.models import checkpoint
+
+    times = HostTimes()
+    with LogLines('openpifpaf_tpu_torch.models.factory') as log:
+        run = coco_train(port, card, argv, label, times, dataset_cls)
+    print_host_split(times, len(run['host_ms']), f'{label} train')
+    want = (f'transfer learning: {transferred} from checkpoint; FRESH '
+            f'(random) weights: {fresh}')
+    out = argv[argv.index('--output') + 1]
+    heads = [(type(m).__name__, m.name)
+             for m in checkpoint.load(out + '.npz')[0]['head_metas']]
+    print(f'{label}: {log.messages[-1]}; checkpoint heads {heads}',
+          flush=True)
+    if log.messages[-1] != want or heads != [('Cif', 'cif'), ('Caf', 'caf'),
+                                             ('Tcaf', 'tcaf')]:
+        raise AssertionError(f'{label}: transfer {log.messages}, want '
+                             f'{want}; heads {heads}')
+    run['times'] = times
+    return run
+
+
+def posetrack_eval_cli(checkpoint: str, flags: list, out: str,
+                       n_pairs: int) -> dict:
+    """``python -m openpifpaf_tpu_torch.eval --dataset posetrack2018`` on
+    the card: the COCO and the PoseTrack stats."""
+    start = time.perf_counter()
+    result = subprocess.run(
+        [sys.executable, '-m', 'openpifpaf_tpu_torch.eval',
+         '--dataset=posetrack2018', f'--checkpoint={checkpoint}',
+         f'--batch-size={EVAL_BATCH}', '-o', out] + flags,
+        cwd=REPO, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO), timeout=600)
+    if result.returncode != 0:
+        raise AssertionError('posetrack2018 eval CLI failed:\n'
+                             f'{result.stderr[-3000:]}')
+    with open(out + '.stats.json') as f:
+        stats = json.load(f)
+    print(f'posetrack2018 eval CLI on the card: exit 0 in '
+          f'{time.perf_counter() - start:.1f} s; stats '
+          f'{dict(zip(stats["text_labels"], stats["stats"]))}, '
+          f'{stats["n_images"]} pairs', flush=True)
+    if (stats['text_labels'] != COCO_LABELS + POSETRACK_LABELS
+            or stats['n_images'] != n_pairs
+            or not all(np.isfinite(stats['stats']))):
+        raise AssertionError(f'posetrack2018 eval CLI stats: {stats}')
+    return stats
+
+
+def posetrack_eval_run(port, card: str, paths: dict) -> dict:
+    """(d) a bias-shifted tshufflenetv2k30 with posetrack2018's heads, bf16,
+    through ``Evaluator`` on the posetrack2018 eval loader (8 pairs per
+    batch, interleaved), the counts set to 0 just before and read just
+    after: K1 once per pair and once more at each sequence's first pair
+    (``TrackingPose`` starts its tracks there), K2 three times per batch
+    (the fused backbone on both frames); images/s, ``nn_time``,
+    ``decoder_time``, host syncs per pair, the MOTA.  The first
+    ``POSETRACK_HELD`` pairs held to the CPU ``TrackingPose`` from the same
+    track state (``hold_tracking_pair``).  Returns the counts and the
+    first K1 and K2 inputs."""
+    cls = port.posetrack.PoseTrack2018
+    cls.data_root, cls.val_annotations = paths['root'], paths['val']
+    cls.square_edge = POSETRACK_EDGE
+    dm = cls()
+    torch.backends.cudnn.benchmark = True
+    model = port.models.factory(POSETRACK_BASENET, dm.head_metas,
+                                device='cuda', bf16=True, seed=0)
+    shift_head_biases(model, dm.head_metas)
+    predictor = port.Predictor(model=model, device='cuda')
+    decoder = predictor.decoder
+    n_pairs = len(dm.eval_loader().dataset)
+    sequences = len({p[0] for p in dm.eval_loader().dataset.pairs})
+    batches = -(-n_pairs // EVAL_BATCH)
+
+    captured, held = {}, []
+    launch, launch_chain = (port.cif_hr.cif_hr_accumulate,
+                            port.pair_chain.pair_chain)
+
+    def spy(*args, **kwargs):
+        captured.setdefault('cif_hr', ([a.clone() for a in args],
+                                       dict(kwargs)))
+        return launch(*args, **kwargs)
+
+    def spy_chain(a, b, chain):
+        captured.setdefault(('pair_chain', tuple(a.shape)),
+                            (a.clone(), b.clone(), chain))
+        return launch_chain(a, b, chain)
+
+    def keep(fields, metas=None):
+        """``TrackingPose.batch_fields`` with the first pairs' track state,
+        fields and decode kept for the hold."""
+        heads = [fields[m.head_index] for m in (
+            decoder.cif_meta, decoder.caf_meta, decoder.tcaf_meta)]
+        out = []
+        for i in range(heads[2].shape[0]):
+            pair = [heads[0][2 * i:2 * i + 2], heads[1][2 * i:2 * i + 2],
+                    heads[2][i]]
+            meta = metas[i] if metas else None
+            if len(held) < POSETRACK_HELD:
+                state = tracker_state(decoder)
+                anns = decoder(pair, meta)
+                held.append((state, [f.clone() for f in pair], anns, meta))
+            else:
+                anns = decoder(pair, meta)
+            out.append(anns)
+        return out
+
+    decoder.batch_fields = keep
+    port.cif_hr.cif_hr_accumulate = spy
+    port.pair_chain.pair_chain = spy_chain
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(port)
+    try:
+        stats = port.eval_mod.Evaluator(dm, predictor).run()
+    finally:
+        port.cif_hr.cif_hr_accumulate = launch
+        port.pair_chain.pair_chain = launch_chain
+        del decoder.batch_fields
+    counts = dict(k1=port.cif_hr.KERNEL_LAUNCHES,
+                  k1_cuda=port.cif_hr.CUDA_LAUNCHES,
+                  k2=port.pair_chain.KERNEL_LAUNCHES,
+                  k2_cuda=port.pair_chain.CUDA_LAUNCHES,
+                  syncs=port.common.HOST_SYNCS,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    named = dict(zip(stats['text_labels'], stats['stats']))
+    print(f'posetrack2018 eval, {POSETRACK_BASENET} bf16 biases shifted, '
+          f'{n_pairs} pairs ({sequences} sequences) at {POSETRACK_EDGE} px '
+          f'in batches of {EVAL_BATCH} pairs: {stats["images_per_second"]} '
+          f'pairs/s, total {stats["total_time"]} s, nn_time '
+          f'{stats["nn_time"]} s, decoder_time {stats["decoder_time"]} s; '
+          f'cif_hr calls {counts["k1"]} ({counts["k1_cuda"]} CUDA kernels), '
+          f'pair_chain calls {counts["k2"]} ({counts["k2_cuda"]} CUDA '
+          f'kernels): {counts["k1"] / n_pairs:.3f} and '
+          f'{counts["k2"] / n_pairs:.3f} per pair; host syncs '
+          f'{counts["syncs"]} ({counts["syncs"] / n_pairs:.1f} per pair); '
+          f'MOTA {named["MOTA"]:.4f}, MOTP {named["MOTP"]:.4f}, misses '
+          f'{named["misses"]:g}, false positives '
+          f'{named["false_positives"]:g}, id switches '
+          f'{named["id_switches"]:g}, n_gt {named["n_gt"]:g}; peak device '
+          f'memory {counts["peak_gib"]:.2f} GiB ({card})', flush=True)
+    want = dict(k1=n_pairs + sequences, k1_cuda=2 * (n_pairs + sequences),
+                k2=len(SN2K30_CHAINS_385) * batches,
+                k2_cuda=KERNELS_PER_BLOCK * SN2K30_BLOCKS * batches)
+    got = {k: counts[k] for k in want}
+    if got != want or stats['n_images'] != n_pairs:
+        raise AssertionError(f'posetrack eval: counts {got}, want {want}')
+    if not all(np.isfinite(stats['stats'])) or named['n_gt'] <= 0:
+        raise AssertionError(f'posetrack eval: stats {named}')
+    for i, (state, fields, anns, meta) in enumerate(held):
+        hold_tracking_pair(port, decoder, state, fields, anns,
+                           f'posetrack eval pair {i}', meta)
+    return dict(stats=stats, counts=counts, captured=captured,
+                model=model, n_pairs=n_pairs)
+
+
+def hold_tracking_pair(port, card_decoder, state, fields, card_anns,
+                       label, meta) -> None:
+    """One eval pair held to the CPU, in two parts.
+
+    (1) The current frame's decode, as the WholeBody batch is held
+    (``hold_wholebody_batch``): the front end stage by stage, then the
+    CPU back end on the card's front end by ``hold_at_budget``.  On these
+    bias-shifted fields every cell is a detection of near-equal
+    confidence (the joints' v fall on a handful of values 1e-3 apart), so
+    the CPU decode from its own front end ranks seeds and candidates that
+    tie within an ulp in another order and grows two or three of a pair's
+    ~14 poses through other joints of the same confidence (the first
+    chip runs of this phase: two poses in two of eight pairs).
+    (2) The association: the port's CPU ``TrackingPose`` from the same
+    track state, on the card's fields and meta, gives as many poses with
+    the same set of ids, and every card pose within 1e-3 of a CPU pose in
+    every xyv value carries that pose's id."""
+    cifcaf = card_decoder.cifcaf
+    current = [fields[0][1:2], fields[1][1:2]]   # the pair's second frame
+    hold_wholebody_batch(port, cifcaf, cifcaf.batch_decoded(current),
+                         current, f'{label}, current frame')
+    cpu = port.decoder.TrackingPose(card_decoder.cif_meta,
+                                    card_decoder.caf_meta,
+                                    card_decoder.tcaf_meta, device='cpu')
+    cpu.cifcaf.config_for = cifcaf.config_for
+    for key, value in copy.deepcopy(state).items():
+        setattr(cpu, key, value)
+    cpu_anns = cpu([f.cpu() for f in fields], meta)
+    matched, other_id = 0, []
+    for ann in card_anns:
+        d = [float(np.abs(ann.data - o.data).max()) for o in cpu_anns]
+        j = int(np.argmin(d)) if d else -1
+        if j >= 0 and d[j] <= 1e-3:
+            matched += 1
+            if cpu_anns[j].id_ != ann.id_:
+                other_id.append((ann.id_, cpu_anns[j].id_))
+    same_ids = sorted(a.id_ for a in card_anns) == \
+        sorted(a.id_ for a in cpu_anns)
+    print(f'{label}: ids card vs CPU TrackingPose from the same track '
+          f'state: poses {len(card_anns)} card, {len(cpu_anns)} CPU, the '
+          f'same set of ids {same_ids}; {matched} card poses within 1e-3 of '
+          f'a CPU pose, ids (card, CPU) that differ among them {other_id}',
+          flush=True)
+    if len(card_anns) != len(cpu_anns) or not same_ids or other_id:
+        raise AssertionError(f'{label}: card and CPU tracking differ')
+
+
+def posetrack_kernels(port, run) -> tuple:
+    """K1 and K2 held to their plain versions and timed on what the eval
+    handed them: one frame's CifHr (F = 17, 385 px) and the backbone's
+    three chains at 16 frames."""
+    args, kwargs = run['captured']['cif_hr']
+    k1 = measure_cif_hr(port.cif_hr, 'posetrack eval F=17', args, kwargs)
+    k1['shape'] = (f'(B, F, N) {tuple(args[0].shape)} -> '
+                   f'{tuple(kwargs["out_hw"])}')
+    basenet = run['model'].module.basenet
+    chains = []
+    for stage, n, side, c in SN2K30_CHAINS_385:
+        a, b, chain = run['captured']['pair_chain',
+                                      (2 * EVAL_BATCH, side, side, c)]
+        chains.append(measure_pair_chain(
+            port.pair_chain, f'posetrack stage {stage}', a, b, chain,
+            [getattr(basenet, f'stage{stage}_{i}') for i in range(1, n + 1)]))
+    k2 = sum_chains(chains)
+    k2['shape'] = [[2 * EVAL_BATCH, side, side, c]
+                   for _, _, side, c in SN2K30_CHAINS_385]
+    print(f'pair_chain per posetrack eval batch (3 chains, 16 frames): '
+          f'kernel {k2["ms"]:.4f} ms, plain {k2["plain_ms"]:.4f} ms, '
+          f'canonical modules {k2["canonical_ms"]:.4f} ms, bound '
+          f'{k2["bound_ms"]:.4f} ms ({k2["bound_by"]})', flush=True)
+    return k1, k2
+
+
+def head_options(port, card: str) -> None:
+    """(e) one cocokp SGD step on the card with ``--cross-talk 0.2
+    --head-dropout 0.1`` (finite loss; the trainer's forward is the
+    canonical graph), and a ``--head-upsample-stride 2`` model's served
+    f32 forward on the card held to its CPU forward."""
+    metas = port.datasets.factory('cocokp').head_metas
+    model = port.models.factory('shufflenetv2k16', metas, device='cuda',
+                                seed=0, head_dropout=0.1, cross_talk=0.2)
+    images, targets, _ = toykp_batch(port, metas, COCOKP_TRAIN_EDGE,
+                                     TRAIN_BATCH, 'cuda')
+    trainer = trainer_for(port, model)
+    trainer.setup(steps_per_epoch=1)
+    total, _ = trainer.train_step(images, targets)
+    loss = float(total)
+    del model, trainer
+
+    metas = port.datasets.factory('cocokp').head_metas
+    models = [port.models.factory('shufflenetv2k16', metas, device=device,
+                                  bf16=False, seed=0, upsample_stride=2)
+              for device in ('cuda', 'cpu')]
+    x = torch.from_numpy(np.random.default_rng(12).normal(
+        size=(1, 3, BACKBONE_CHECK_EDGE, BACKBONE_CHECK_EDGE)).astype(
+            np.float32))
+    saved = tf32_off()
+    try:
+        got = [f.cpu() for f in models[0](x.cuda())]
+    finally:
+        restore_tf32(saved)
+    want = models[1](x)
+    diff = scaled_difference(got, want)
+    print(f'head options: one cocokp step at {COCOKP_TRAIN_EDGE} px, batch '
+          f'{TRAIN_BATCH}, bf16, --cross-talk 0.2 --head-dropout 0.1: loss '
+          f'{loss:.6f}; --head-upsample-stride 2 served f32 forward at '
+          f'{BACKBONE_CHECK_EDGE} px, fields {[tuple(f.shape) for f in got]}: '
+          f'card vs CPU max |d| / scale {diff:.3e} (limit '
+          f'{HEAD_OPTIONS_TOL}) ({card})', flush=True)
+    if not np.isfinite(loss) or diff > HEAD_OPTIONS_TOL or \
+            got[0].shape[-1] != 2 * ((BACKBONE_CHECK_EDGE - 1) // 16) + 1:
+        raise AssertionError('head options: loss or upsampled forward')
+
+
+def posetrack_phase(port, card: str, tmp: str, coco_paths: dict) -> dict:
+    """(a) the PoseTrack2018 tree; (b) the converter and the migrate CLI;
+    (c) posetrack2018 and cocokpst trained from the converted checkpoint
+    through the head transfer; (d) the eval CLI on the posetrack2018
+    checkpoint, then a bias-shifted model through ``Evaluator`` with K1 and
+    K2 counted, its first pairs held to the CPU, K1 and K2 held and timed
+    on its inputs; (e) the head options."""
+    from openpifpaf_tpu_torch.plugins.coco import CocoDataset
+    from openpifpaf_tpu_torch.plugins.posetrack.posetrack2018 import \
+        PoseTrack2018Dataset
+
+    start = time.perf_counter()
+    port.plugins.register()
+    paths = write_posetrack_tree(os.path.join(tmp, 'posetrack2018'))
+    flags = [f'--posetrack2018-data-root={paths["root"]}',
+             f'--posetrack2018-train-annotations={paths["train"]}',
+             f'--posetrack2018-val-annotations={paths["val"]}']
+    print(f'posetrack2018 tree: {POSETRACK_SEQUENCES} sequences x '
+          f'{POSETRACK_FRAMES} PNG frames of {POSETRACK_SIZE[0]}x'
+          f'{POSETRACK_SIZE[1]} per split, written in '
+          f'{time.perf_counter() - start:.1f} s', flush=True)
+
+    converted = posetrack_converter(port, tmp, card)
+    common = [f'--checkpoint={converted}', f'--batch-size={TRAIN_BATCH}',
+              '--epochs=1', '--log-interval=1']
+    out = os.path.join(tmp, 'posetrack2018')
+    train = posetrack_train(
+        port, card, ['--dataset=posetrack2018', *common, *flags,
+                     '--output', out], 'posetrack2018', PoseTrack2018Dataset,
+        ['basenet', 'head_nets_0 (cif)'],
+        ['head_nets_1 (caf)', 'head_nets_2 (tcaf)'])
+    n_pairs = POSETRACK_SEQUENCES * (POSETRACK_FRAMES - 1)
+    if len(train['step_ms']) != n_pairs // TRAIN_BATCH:
+        raise AssertionError(f'posetrack2018 train: {len(train["step_ms"])} '
+                             'steps')
+    st_out = os.path.join(tmp, 'cocokpst')
+    st_train = posetrack_train(
+        port, card, ['--dataset=cocokpst', *common, '--head-dropout=0.1',
+                     '--output', st_out]
+        + coco_data_flags('cocokp', coco_paths, 'person_keypoints'),
+        'cocokpst', CocoDataset,
+        ['basenet', 'head_nets_0 (cif)', 'head_nets_1 (caf)'],
+        ['head_nets_2 (tcaf)'])
+
+    posetrack_eval_cli(out + '.npz', flags, out + '.eval', n_pairs)
+    run = posetrack_eval_run(port, card, paths)
+    k1, k2 = posetrack_kernels(port, run)
+    counts = run['counts']
+    del run
+    torch.cuda.empty_cache()
+    head_options(port, card)
+    print(f'posetrack phase: {time.perf_counter() - start:.1f} s ({card})',
+          flush=True)
+    return dict(train=train, cocokpst=st_train, counts=counts, k1=k1, k2=k2)
 
 
 class _Port:
@@ -3820,6 +4375,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase('coco')
         coco = coco_phase(port, card, tmp)
+        phase('posetrack')
+        posetrack = posetrack_phase(port, card, tmp, coco['paths'])
     k1_backbones = [r['k1'] for r in backbones['served'].values()]
     max_err = max([max_err, wholebody['k1']['max_abs_err'],
                    tracked['k1']['max_abs_err'],
@@ -3827,11 +4384,13 @@ def main() -> int:
                    detected['k1_cifar10']['max_abs_err']]
                   + [r['max_abs_err'] for r in k1_backbones]
                   + [r['max_abs_err'] for r in (coco['k1'], coco['det']['k1'],
-                                                coco['crowd']['k1'])]
+                                                coco['crowd']['k1'],
+                                                posetrack['k1'])]
                   + [r['max_abs_err'] for kind, r in evaluated['checks']
                      if kind == 'cif_hr'])
     k2_err = max([k2_err, wholebody['k2']['max_abs_err'],
-                  tracked['k2']['max_abs_err'], coco['k2']['max_abs_err']]
+                  tracked['k2']['max_abs_err'], coco['k2']['max_abs_err'],
+                  posetrack['k2']['max_abs_err']]
                  + [r['max_abs_err'] for kind, r in evaluated['checks']
                     if kind == 'pair_chain'])
     eval_counts = evaluated['runs']['multi-scale force-complete']['counts']
@@ -3866,6 +4425,8 @@ def main() -> int:
         'coco': {'cocokp': at_new_shape(coco['k1']),
                  'cocodet': at_new_shape(coco['det']['k1']),
                  'crowdpose': at_new_shape(coco['crowd']['k1'])},
+        'posetrack_launches': posetrack['counts']['k1'],
+        'posetrack': at_new_shape(posetrack['k1']),
         'max_abs_err': max_err, 'max_abs_diff': max_err,
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
@@ -3888,6 +4449,8 @@ def main() -> int:
                           'cocodet': coco['det']['counts']['k2'],
                           'crowdpose': coco['crowd']['counts']['k2']},
         'coco': {'cocokp': at_new_shape(coco['k2'])},
+        'posetrack_launches': posetrack['counts']['k2'],
+        'posetrack': at_new_shape(posetrack['k2']),
         'max_abs_err': k2_err, 'max_abs_diff': k2_err,
         'ms': k2_main['ms'], 'plain_ms': k2_main['plain_ms'],
         'bound_ms': k2_main['bound_ms'], 'bound_by': k2_main['bound_by'],

@@ -131,6 +131,7 @@ def cli(argv=None) -> argparse.Namespace:
                        help='base network of a fresh model with seeded '
                             'weights, when no checkpoint is given')
     models.norm_cli(group)
+    models.network_cli(group)
     group.add_argument('--no-bf16', dest='bf16', default=True,
                        action='store_false',
                        help='compute in float32 instead of bfloat16')
@@ -155,7 +156,8 @@ def main(argv=None) -> int:
     predictor = Predictor(checkpoint=args.checkpoint, base_name=args.basenet,
                           head_metas=datamodule.head_metas, device=args.device,
                           bf16=args.bf16, seed=args.seed,
-                          norm=args.basenet_norm)
+                          norm=args.basenet_norm,
+                          **models.network_options(args))
     LOG.info('eval of %s on %s', args.checkpoint or args.basenet,
              predictor.device)
 

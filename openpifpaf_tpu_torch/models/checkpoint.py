@@ -4,8 +4,9 @@ Port of ``openpifpaf_tpu/models/checkpoint.py`` (``:30-98``): a checkpoint
 is a flat ``.npz`` of ``collection/path/to/leaf`` arrays (``params/...``,
 ``batch_stats/...``; the trainer's resume copy adds ``ema/...``) plus a
 ``__meta__`` entry that holds a UTF-8 JSON header (basenet name, base
-stride, epoch, head metas).  ``models/from_jax.py`` maps such keys to and
-from the port's ``state_dict``.
+stride, epoch, head metas, ``extra``).  ``models/from_jax.py`` maps such
+keys to and from the port's ``state_dict``.  Loading runs no migration, as
+the JAX package's ``load`` runs none; ``migrate.py`` upgrades old files.
 """
 
 from __future__ import annotations
@@ -52,16 +53,18 @@ def headmeta_from_json(d: dict) -> headmeta_mod.Base:
 
 
 def save(path: str, *, variables: Dict[str, np.ndarray], head_metas,
-         basenet_name: str, base_stride: int, epoch: int = 0) -> None:
+         basenet_name: str, base_stride: int, epoch: int = 0,
+         extra_meta: dict = None) -> None:
     """``variables``: flat ``collection/.../leaf`` arrays (as
-    ``from_jax.to_jax_variables`` gives them)."""
+    ``from_jax.to_jax_variables`` gives them); ``extra_meta`` goes into the
+    header's ``extra`` (the migrate CLI's ``converted_from``)."""
     header = {
         'format_version': 1,
         'basenet': basenet_name,
         'base_stride': base_stride,
         'epoch': epoch,
         'head_metas': [headmeta_to_json(m) for m in head_metas],
-        'extra': {},
+        'extra': extra_meta or {},
     }
     flat = dict(variables)
     flat['__meta__'] = np.frombuffer(

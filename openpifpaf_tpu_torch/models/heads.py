@@ -5,6 +5,9 @@ Port of ``openpifpaf_tpu/models/heads.py``.  Reference parity:
 1x1 conv produces ``n_fields * n_components`` channels (times
 ``upsample_stride**2`` with the optional PixelShuffle upsampling); the
 output is viewed as ``(B, n_fields, n_components, H, W)`` in float32.
+``dropout_rate`` (``--head-dropout``) drops features before the conv in
+train mode, as the JAX head's ``nn.Dropout`` (``heads.py:77-88``); in eval
+mode it is the identity.
 """
 
 from __future__ import annotations
@@ -63,16 +66,22 @@ def split_fields(x: torch.Tensor, meta: headmeta.Base) -> FieldComponents:
 class CompositeField4(nn.Module):
     """1x1-conv composite field head: NCHW features -> (B, F, C, H, W) f32."""
 
-    def __init__(self, meta: headmeta.Base, in_features: int):
+    def __init__(self, meta: headmeta.Base, in_features: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.meta = meta
         u = meta.upsample_stride
+        # the mask draws from torch's generator (seeded by the trainer)
+        self.dropout = nn.Dropout(dropout_rate) if dropout_rate > 0.0 \
+            else None
         self.conv = nn.Conv2d(in_features,
                               meta.n_fields * meta.n_components * u * u, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         meta = self.meta
         u = meta.upsample_stride
+        if self.dropout is not None:
+            x = self.dropout(x)   # the identity in eval mode
         x = self.conv(x).float()
         if u > 1:
             # channel order (c rh rw), as torch's and the JAX head's

@@ -23,12 +23,20 @@ from .. import headmeta as headmeta_mod
 
 
 class Shell(nn.Module):
-    def __init__(self, basenet: nn.Module, head_nets: Sequence[nn.Module]):
+    """``cross_talk`` (``--cross-talk``): in train mode only, the input
+    batch gets ``cross_talk`` times itself rolled by one image added, as
+    the JAX ``Shell`` does (``shell.py:26-33``)."""
+
+    def __init__(self, basenet: nn.Module, head_nets: Sequence[nn.Module],
+                 cross_talk: float = 0.0):
         super().__init__()
         self.basenet = basenet
         self.head_nets = nn.ModuleList(head_nets)
+        self.cross_talk = cross_talk
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        if self.training and self.cross_talk > 0.0:
+            x = x + self.cross_talk * torch.roll(x, 1, 0)
         features = self.basenet(x)
         return [head(features) for head in self.head_nets]
 

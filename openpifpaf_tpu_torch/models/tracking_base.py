@@ -27,7 +27,10 @@ from .. import headmeta as headmeta_mod
 
 
 class TrackingShell(Shell):
-    """Backbone and heads over interleaved frame pairs."""
+    """Backbone and heads over interleaved frame pairs.  It takes no
+    ``cross_talk``: the JAX factory builds its ``TrackingShell`` without
+    one (``factory.py:155-160``), so ``--cross-talk`` leaves a tracking
+    model as it is."""
 
     def __init__(self, basenet: nn.Module, head_nets: Sequence[nn.Module],
                  head_paired: Sequence[bool]):

@@ -1,7 +1,8 @@
 """Dataset plugins: the COCO-format data modules (cocokp, cocodet and,
-on ``generic_kp``, crowdpose, wholebody, animal and apollo) and the
-synthetic ones (toykp, toycrowd, toywb, toykpst with frame pairs for
-tracking, and cifar10, detection)."""
+on ``generic_kp``, crowdpose, wholebody, animal and apollo), the frame
+pair modules that read files (cocokpst and posetrack2018), and the
+synthetic ones (toykp, toycrowd, toywb, toykpst with frame pairs for tracking, and
+cifar10, detection)."""
 
 
 def register() -> None:
@@ -13,7 +14,7 @@ def register() -> None:
     from .cifar10 import Cifar10
     from .coco import CocoDet, CocoKp
     from .crowdpose import CrowdPose
-    from .posetrack import ToyKpSt
+    from .posetrack import CocoKpSt, PoseTrack2018, ToyKpSt
     from .toykp import ToyCrowd, ToyKp, ToyWb
     from .wholebody import WholeBody
     DATAMODULES['cocokp'] = CocoKp
@@ -25,5 +26,7 @@ def register() -> None:
     DATAMODULES['toykp'] = ToyKp
     DATAMODULES['toycrowd'] = ToyCrowd
     DATAMODULES['toywb'] = ToyWb
+    DATAMODULES['cocokpst'] = CocoKpSt
+    DATAMODULES['posetrack2018'] = PoseTrack2018
     DATAMODULES['toykpst'] = ToyKpSt
     DATAMODULES['cifar10'] = Cifar10

@@ -51,6 +51,7 @@ def cli(argv=None) -> argparse.Namespace:
     group.add_argument('--checkpoint', default=None,
                        help='npz checkpoint (the JAX package\'s format)')
     models.norm_cli(group)
+    models.network_cli(group)
     group.add_argument('--no-bf16', dest='bf16', default=True,
                        action='store_false',
                        help='compute in float32 instead of bfloat16')
@@ -84,7 +85,8 @@ def main(argv=None) -> int:
         return 1
 
     predictor = Predictor(checkpoint=args.checkpoint, device=args.device,
-                          bf16=args.bf16, norm=args.basenet_norm)
+                          bf16=args.bf16, norm=args.basenet_norm,
+                          **models.network_options(args))
     for pred, _, meta in predictor.images(image_paths):
         LOG.info('%s: %d annotations', meta['file_name'], len(pred))
         if args.json_output is not None:

@@ -45,16 +45,19 @@ class Predictor:
                  model: Optional[models.Model] = None,
                  base_name: Optional[str] = None, head_metas=None,
                  json_data: bool = False, device=None, bf16: bool = True,
-                 seed: int = 0, norm: str = 'batchnorm'):
+                 seed: int = 0, norm: str = 'batchnorm', **network):
         """``device=None`` means the card (raises without CUDA).  The model
-        is ``model``, else a JAX-package ``checkpoint`` npz, else a fresh
+        is ``model``, else a JAX-package ``checkpoint`` npz (its heads
+        grafted onto ``head_metas`` where they differ), else a fresh
         ``base_name`` model with weights from ``seed``; ``norm`` is the
-        backbone's normalization (``--basenet-norm``)."""
+        backbone's normalization (``--basenet-norm``), ``network`` the head
+        options (``models.network_options``)."""
         self.device = resolve_device(device)
         if model is None:
             model = models.factory(base_name, head_metas,
                                    checkpoint=checkpoint, bf16=bf16,
-                                   device=self.device, seed=seed, norm=norm)
+                                   device=self.device, seed=seed, norm=norm,
+                                   **network)
         elif model.device != self.device:
             raise ValueError(f'model on {model.device}, predictor on '
                              f'{self.device}')

@@ -66,6 +66,7 @@ def cli(argv=None) -> argparse.Namespace:
     group.add_argument('--basenet', default=None,
                        help=f'base network, one of {sorted(models.BASE_FACTORIES)}')
     models.norm_cli(group)
+    models.network_cli(group)
     group.add_argument('--no-bf16', dest='bf16', default=True,
                        action='store_false',
                        help='compute in float32 instead of bfloat16')
@@ -102,17 +103,17 @@ def main(argv=None) -> int:
 
     datamodule = datasets.factory(args.dataset)
     datamodule.seed = args.seed
+    # a checkpoint with other heads than the data module's is grafted onto
+    # them (models.transfer): the backbone and same-named heads carry over
     model = models.factory(args.basenet, datamodule.head_metas,
                            checkpoint=args.checkpoint, bf16=args.bf16,
                            device=device, seed=args.seed,
-                           norm=args.basenet_norm)
-    if args.checkpoint:
-        names = [(type(m).__name__, m.name) for m in model.head_metas]
-        if names != [(type(m).__name__, m.name) for m in datamodule.head_metas]:
-            raise ValueError(f'checkpoint heads {names} are not the data '
-                             f'module\'s; head transfer is not ported')
-        for meta in datamodule.head_metas:
-            meta.base_stride = model.base_stride
+                           norm=args.basenet_norm,
+                           **models.network_options(args))
+    # the encoders take the strides of the heads they train
+    for meta, model_meta in zip(datamodule.head_metas, model.head_metas):
+        meta.base_stride = model.base_stride
+        meta.upsample_stride = model_meta.upsample_stride
     LOG.info('model: %s on %s, %d params', model.basenet_name, device,
              sum(p.numel() for p in model.module.parameters()))
 

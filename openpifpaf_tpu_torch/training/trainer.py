@@ -7,7 +7,10 @@ checkpoints at the next epoch boundary.
 
 The forward is the port's canonical graph (``Shell``) under autograd in
 train mode, bf16 through autocast with f32 parameters when the model is
-``bf16``, as the JAX ``Factory(bf16=True)`` trains.  BatchNorm updates its
+``bf16``, as the JAX ``Factory(bf16=True)`` trains.  So ``--head-dropout``
+and ``--cross-talk`` act in every step (the JAX trainer leaves its fused
+plans for the canonical graph when either is set,
+``fused_shufflenet.py:237``, ``:278-279``).  BatchNorm updates its
 running statistics flax's way (``models/base.BatchNorm``).  The served
 forward folds BatchNorm once (``Model.inference_plan``), so every step
 calls ``Model.refold()``: a ``Predictor`` on the same model then serves the

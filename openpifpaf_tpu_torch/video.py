@@ -160,6 +160,7 @@ def cli(argv=None) -> argparse.Namespace:
                             'weights and the toykpst tracking heads, when '
                             'no checkpoint is given')
     models.norm_cli(group)
+    models.network_cli(group)
     group.add_argument('--no-bf16', dest='bf16', default=True,
                        action='store_false',
                        help='compute in float32 instead of bfloat16')
@@ -188,7 +189,8 @@ def main(argv=None) -> int:
     model = models.factory(args.basenet, head_metas,
                            checkpoint=args.checkpoint, bf16=args.bf16,
                            device=args.device, seed=args.seed,
-                           norm=args.basenet_norm)
+                           norm=args.basenet_norm,
+                           **models.network_options(args))
     processor = VideoProcessor(model, long_edge=args.long_edge)
     LOG.info('tracking mode: %s, on %s', processor.tracking, model.device)
 

@@ -184,9 +184,9 @@ def test_registry_covers_the_jax_data_modules():
     jax_plugin.register()
     plugins.register()
     missing = set(jax_datasets.DATAMODULES) - set(datasets.DATAMODULES)
-    assert missing == {'cocokpst', 'posetrack2018'}
+    assert missing == set()
     for name in ('cocokp', 'cocodet', 'crowdpose', 'wholebody', 'animal',
-                 'apollo'):
+                 'apollo', 'cocokpst', 'posetrack2018'):
         assert name in datasets.DATAMODULES
     parser = argparse.ArgumentParser()
     datasets.cli(parser)     # every module's flags in one parser

@@ -81,7 +81,12 @@ def test_port_sources_found():
                  'plugins/generic_kp.py', 'plugins/crowdpose/__init__.py',
                  'plugins/crowdpose/constants.py',
                  'plugins/animalpose/__init__.py',
-                 'plugins/apollocar3d/__init__.py'):
+                 'plugins/apollocar3d/__init__.py',
+                 'plugins/posetrack/constants.py',
+                 'plugins/posetrack/cocokpst.py',
+                 'plugins/posetrack/posetrack2018.py',
+                 'models/converter.py', 'models/model_migration.py',
+                 'migrate.py'):
         assert os.path.join(REPO, 'openpifpaf_tpu_torch', name) in files
     assert len(files) > 20
 
@@ -153,6 +158,11 @@ def test_import_loads_no_jax_and_builds_nothing():
         'openpifpaf_tpu_torch.plugins.wholebody, '
         'openpifpaf_tpu_torch.plugins.animalpose, '
         'openpifpaf_tpu_torch.plugins.apollocar3d, '
+        'openpifpaf_tpu_torch.plugins.posetrack.cocokpst, '
+        'openpifpaf_tpu_torch.plugins.posetrack.posetrack2018, '
+        'openpifpaf_tpu_torch.models.converter, '
+        'openpifpaf_tpu_torch.models.model_migration, '
+        'openpifpaf_tpu_torch.migrate, '
         'openpifpaf_tpu_torch.kernels as k\n'
         'import openpifpaf_tpu_torch.plugins as p; p.register()\n'
         f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]\n'
@@ -206,6 +216,31 @@ def test_entry_points_default_to_the_card():
     from openpifpaf_tpu_torch import predict
     with pytest.raises(RuntimeError, match='CUDA'):
         predict.main(['x.png', '--checkpoint=missing.npz', '-q'])
+
+
+def test_transfer_and_head_options_default_to_the_card(tmp_path):
+    """A checkpoint grafted onto other heads, and the train CLI that does
+    it with the head options, raise without CUDA."""
+    no_cuda()
+    from openpifpaf_tpu_torch import models, train
+    from openpifpaf_tpu_torch.models import checkpoint
+    from openpifpaf_tpu_torch.plugins.posetrack import ToyKpSt
+    from test_torch_port_models import coco_metas
+
+    model = models.factory('shufflenetv2k16', coco_metas(), device='cpu')
+    path = str(tmp_path / 'single.npz')
+    checkpoint.save(path, variables=models.to_jax_variables(
+        model.module.state_dict()), head_metas=model.head_metas,
+        basenet_name='shufflenetv2k16', base_stride=16)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        models.factory(checkpoint=path, head_metas=ToyKpSt().head_metas,
+                       head_dropout=0.1)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        train.main(['--dataset=toykpst', f'--checkpoint={path}',
+                    '--head-dropout=0.1', '--cross-talk=0.2',
+                    '--head-upsample-stride=2', '-o',
+                    str(tmp_path / 'tracking'), '-q'])
+    assert not os.path.exists(str(tmp_path / 'tracking.npz'))
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
