@@ -106,8 +106,9 @@ Phases, in order; any failure raises and exits non-zero:
    memory; four frames held to the CPU ``TrackingPose`` from the same
    track state (``hold_tracking_frame``); (c) the train CLI on toykpst,
    the eval CLI with the COCO and PoseTrack metrics, the video CLI on PNG
-   frames; (d) K1 and K2 held to their plain versions and timed on the
-   stream's inputs (one frame);
+   frames (the CLIs on the stream's model beside the toykpst ones); (d)
+   K1 and K2 held to their plain versions and timed on the stream's
+   inputs (one frame);
 13. detect: (b) sn2k16 with cocodet's CifDet head (80 categories x 7),
    bf16, the head calibrated so that the confidences spread over (0.3,
    0.95) and the boxes over 64-320 px (``calibrate_det_head``), decoded
@@ -117,10 +118,11 @@ Phases, in order; any failure raises and exits non-zero:
    after), per-image ms, peak memory less what earlier phases hold, two
    images' decode held to the CPU decode (``hold_dets``); (a) K1 held to
    its plain version and timed at the serve's inputs (F = 80, 321^2 hr);
-   (c) the train CLI on ``toykp,cifar10`` (every head loss finite, three
-   heads in the checkpoint), a calibrated three-head sn2k16 saved as a
-   checkpoint (K1 held and timed at cifar10's shape, F = 10 on a 5x5 grid,
-   17^2 hr, on its 33 px prediction), the predict CLI on it with 8 PNGs
+   (c) a calibrated three-head sn2k16 saved as a checkpoint (K1 held and
+   timed at cifar10's shape, F = 10 on a 5x5 grid, 17^2 hr, on its 33 px
+   prediction), then side by side the train CLI on ``toykp,cifar10``
+   (every head loss finite, three heads in the checkpoint) and the
+   predict CLI on the checkpoint with 8 PNGs
    of 641 px on the card (poses and boxes in every json) and with 2 PNGs
    of 129 px on the card and on the CPU, f32, held by
    ``hold_predict_jsons``;
@@ -183,15 +185,32 @@ Phases, in order; any failure raises and exits non-zero:
    to their plain versions and timed on its inputs; (e) one cocokp step
    with ``--cross-talk 0.2 --head-dropout 0.1`` (finite loss) and a
    ``--head-upsample-stride 2`` model's f32 forward, card vs CPU;
-17. a ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
+17. export: the export CLIs as subprocesses on the card, all started at
+   once: (a) ``python -m openpifpaf_tpu_torch.export_program`` of seeded
+   sn2k16 with cocokp's heads, bf16, 641 px, batch 8, the ``.pt2`` loaded
+   and run on 3 staged batches, each held to eager ``Model.__call__``
+   (every head equal, ``torch.equal``) with K2 launched 3
+   times per batch (counts set to 0 before and read after), the forward's
+   ms per image of the program and of eager (CUDA events); (b) the same
+   with ``--dynamic-batch``, run and held at batch 1 and 8; (c)
+   ``export_onnx --verify`` of sn2k16 and swin_t in f32 at 641 px (TF32
+   off, the interpreter on the card): deviation, bytes, nodes, seconds;
+   (d) ``count_ops`` at 641 px, and the flop counter's totals over the
+   served forward (K2 by its registered formula) and the canonical one;
+   (e) the CoreML CLI's exit 1 and message; (f) the operator
+   ``openpifpaf_tpu_torch::pair_chain`` at the export's three chain
+   inputs held to its CPU implementation (on the card's tensors, and on
+   the CPU for image 0) and timed;
+18. a ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
    serve phase, ``eval_launches`` from the multi-scale eval,
    ``dense_launches``, ``wholebody_launches``, ``tracking_launches``,
    ``detect_launches``, ``backbones_launches`` (per served backbone),
-   ``coco_launches`` (per data module) and ``posetrack_launches`` from
-   those phases' runs, ``wholebody``, ``tracking``, ``detect``,
-   ``detect_cifar10``, ``backbones``, ``coco`` and ``posetrack`` its hold
-   and times at those shapes), the card's name and power limit, then the
-   last line ``{"ok": true, "device": {...}}``.
+   ``coco_launches`` (per data module), ``posetrack_launches`` and (K2)
+   ``export_launches`` from those phases' runs, ``wholebody``,
+   ``tracking``, ``detect``, ``detect_cifar10``, ``backbones``, ``coco``,
+   ``posetrack`` and ``export`` its hold and times at those shapes), the
+   card's name and power limit, then the last line ``{"ok": true,
+   "device": {...}}``.
 
 It imports only the port, torch and numpy.
 """
@@ -236,8 +255,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f'== {name}', flush=True)
+    """A phase's heading, with the seconds since the script started."""
+    print(f'== {name} (at {time.perf_counter() - _START:.1f} s)', flush=True)
 
 
 def cuda_ms(fn, repeats: int = 10, warmup: int = 2):
@@ -254,6 +277,29 @@ def cuda_ms(fn, repeats: int = 10, warmup: int = 2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times)), float(min(times)), float(max(times))
+
+
+def hidden_enqueue_ms(fn, repeats: int = 10, warmup: int = 2):
+    """``fn`` queued behind a busy stream (``torch.cuda._sleep`` for about
+    2.5 ms), so that the host's enqueueing of its kernels is hidden from
+    the events: the median device ms of its kernels, and the median host
+    ms the call took to enqueue them.  ``cuda_ms`` starts on an idle stream,
+    so its reading holds the enqueueing as well."""
+    for _ in range(warmup):
+        fn()
+    device, host = [], []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(5_000_000)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append(1e3 * (time.perf_counter() - t0))
+        end.record()
+        end.synchronize()
+        device.append(start.elapsed_time(end))
+    return float(np.median(device)), float(np.median(host))
 
 
 # ---------------------------------------------------------------- kernels
@@ -494,8 +540,12 @@ def measure_pair_chain(pc, name, a, b, chain, modules) -> dict:
     max|kernel - plain| <= 3e-2 max|plain| (``test_fused_shufflenet.py:321``);
     f32 max|kernel - plain| / (1 + |plain|) <= 1e-5."""
     bf16 = a.dtype == torch.bfloat16
+    # a served chain carries its packed tensors only: the plain version
+    # reads the blocks back from them
+    blocks = pc.unpack(chain.w1, chain.w2, chain.vec, chain.dwk,
+                       chain.channels)
     got = pc.pair_chain(a, b, chain)
-    want = pc.pair_chain_plain(a, b, chain.blocks, chain.dtype)
+    want = pc.pair_chain_plain(a, b, blocks, chain.dtype)
     torch.cuda.synchronize()
     err, worst = 0.0, 0.0
     for g, w in zip(got, want):
@@ -508,7 +558,7 @@ def measure_pair_chain(pc, name, a, b, chain, modules) -> dict:
     limit = 3e-2 if bf16 else 1e-5
     measure = 'max|d|/max|plain|' if bf16 else 'max|d|/(1+|plain|)'
     print(f'pair_chain {name} {tuple(a.shape)} {str(a.dtype)[6:]}: '
-          f'{len(chain.blocks)} blocks, max|kernel - plain| {err:.3e}, '
+          f'{len(blocks)} blocks, max|kernel - plain| {err:.3e}, '
           f'{measure} {worst:.3e} (limit {limit:g})', flush=True)
     if not worst <= limit:
         raise AssertionError(f'pair_chain kernel disagrees ({name}): {worst}')
@@ -524,19 +574,28 @@ def measure_pair_chain(pc, name, a, b, chain, modules) -> dict:
     if bf16:
         print_plan(pc, name, a)
     ms = cuda_ms(lambda: pc.pair_chain(a, b, chain))
-    plain = cuda_ms(lambda: pc.pair_chain_plain(a, b, chain.blocks,
-                                                chain.dtype))
+    device_ms, enqueue_ms = hidden_enqueue_ms(
+        lambda: pc.pair_chain(a, b, chain))
+    # the same launch without the dispatcher: what the operator costs
+    _, launch_enqueue_ms = hidden_enqueue_ms(lambda: pc._launch(
+        a, b, chain.w1, chain.w2, chain.vec, chain.dwk, chain.channels))
+    plain = cuda_ms(lambda: pc.pair_chain_plain(a, b, blocks, chain.dtype))
     canon = cuda_ms(canonical)
     bsz, h, w, c = a.shape
     bound, bound_by, n_bytes, ops = chain_bound_ms(
-        len(chain.blocks), bsz * h * w, c, a.element_size())
+        len(blocks), bsz * h * w, c, a.element_size())
     print(f'pair_chain {name}: kernel median {ms[0]:.4f} ms [min {ms[1]:.4f}, '
-          f'max {ms[2]:.4f}], plain {plain[0]:.4f} ms, canonical modules '
-          f'{canon[0]:.4f} ms, bound {bound:.4f} ms by {bound_by} '
-          f'({n_bytes} B, {ops:.4g} ops; {100 * bound / ms[0]:.1f}% of it), '
-          f'no single PyTorch call computes it', flush=True)
+          f'max {ms[2]:.4f}] ({device_ms:.4f} ms with the host\'s '
+          f'enqueueing hidden; enqueueing {enqueue_ms:.4f} ms through the '
+          f'operator, {launch_enqueue_ms:.4f} ms without the dispatcher), '
+          f'plain {plain[0]:.4f} ms, canonical modules {canon[0]:.4f} ms, '
+          f'bound {bound:.4f} ms by {bound_by} ({n_bytes} B, {ops:.4g} ops; '
+          f'{100 * bound / ms[0]:.1f}% of it), no single PyTorch call '
+          f'computes it', flush=True)
     return dict(ms=ms[0], plain_ms=plain[0], canonical_ms=canon[0],
-                bound_ms=bound, bound_by=bound_by, max_abs_err=err)
+                bound_ms=bound, bound_by=bound_by, max_abs_err=err,
+                device_ms=device_ms, enqueue_ms=enqueue_ms,
+                launch_enqueue_ms=launch_enqueue_ms)
 
 
 def print_plan(pc, name, a) -> None:
@@ -893,7 +952,7 @@ def serve(port, card: str) -> dict:
     # warm-up, keeping what the main path hands K1 and K2 for their timing
     captured, chains = [], []
     launch = port.cif_hr.cif_hr_accumulate
-    launch_chain = port.pair_chain.pair_chain
+    launch_chain = port.pair_chain.apply_chain
 
     def spy(*args, **kwargs):
         captured.append(([a.clone() for a in args], dict(kwargs)))
@@ -904,12 +963,12 @@ def serve(port, card: str) -> dict:
         return launch_chain(a, b, chain)
 
     port.cif_hr.cif_hr_accumulate = spy
-    port.pair_chain.pair_chain = spy_chain
+    port.pair_chain.apply_chain = spy_chain
     try:
         predictor.batch(batches[0])
     finally:
         port.cif_hr.cif_hr_accumulate = launch
-        port.pair_chain.pair_chain = launch_chain
+        port.pair_chain.apply_chain = launch_chain
     if len(captured) != 1:
         raise AssertionError(f'one batch launched K1 {len(captured)} times')
     if [tuple(a.shape) for a, _, _ in chains] != [
@@ -1413,7 +1472,7 @@ def eval_run(port, predictor, dm, label, n_images=EVAL_IMAGES):
     loader_fn = predictor.dataset_loader
     batch_decoded = predictor.decoder.batch_decoded
     launch, launch_chain = (port.cif_hr.cif_hr_accumulate,
-                            port.pair_chain.pair_chain)
+                            port.pair_chain.apply_chain)
 
     def counted(loader, **kw):
         counts = [0, 0, 0]
@@ -1449,7 +1508,7 @@ def eval_run(port, predictor, dm, label, n_images=EVAL_IMAGES):
     predictor.dataset_loader = counted
     predictor.decoder.batch_decoded = keep
     port.cif_hr.cif_hr_accumulate = spy
-    port.pair_chain.pair_chain = spy_chain
+    port.pair_chain.apply_chain = spy_chain
     predictor.total_nn_time = predictor.total_decoder_time = 0.0
     predictor.total_images = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1458,7 +1517,7 @@ def eval_run(port, predictor, dm, label, n_images=EVAL_IMAGES):
         stats = port.eval_mod.Evaluator(dm, predictor).run()
     finally:
         port.cif_hr.cif_hr_accumulate = launch
-        port.pair_chain.pair_chain = launch_chain
+        port.pair_chain.apply_chain = launch_chain
         del predictor.dataset_loader, predictor.decoder.batch_decoded
     counts = dict(k1=port.cif_hr.KERNEL_LAUNCHES,
                   k1_cuda=port.cif_hr.CUDA_LAUNCHES,
@@ -1636,7 +1695,7 @@ def served_run(port, predictor, batches, label: str,
     of every batch (each ``batch()`` waits for its decode)."""
     captured, chains = [], []
     launch, launch_chain = (port.cif_hr.cif_hr_accumulate,
-                            port.pair_chain.pair_chain)
+                            port.pair_chain.apply_chain)
 
     def spy(*args, **kwargs):
         captured.append(([a.clone() for a in args], dict(kwargs)))
@@ -1648,12 +1707,12 @@ def served_run(port, predictor, batches, label: str,
 
     if capture:
         port.cif_hr.cif_hr_accumulate = spy
-        port.pair_chain.pair_chain = spy_chain
+        port.pair_chain.apply_chain = spy_chain
     try:
         predictor.batch(batches[0])
     finally:
         port.cif_hr.cif_hr_accumulate = launch
-        port.pair_chain.pair_chain = launch_chain
+        port.pair_chain.apply_chain = launch_chain
 
     decoded = []
     batch_decoded = predictor.decoder.batch_decoded
@@ -1842,6 +1901,37 @@ def painted_wholebody_scenes(wb, **jitter):
     scenes = [[person(160.0)], [person(-30.0), person(160.0), person(350.0)]]
     return painted_scenes(scenes, len(wb.KEYPOINTS), (wb.SKELETON,), side,
                           **jitter)
+
+
+def start_cli(module: str, args, cwd: str = REPO, **env):
+    """``python -m openpifpaf_tpu_torch.<module> args`` started in the
+    background (``env``: extra environment); ``wait_cli`` finishes it.
+    Independent CLIs run side by side, after a phase's measurements."""
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, '-m', f'openpifpaf_tpu_torch.{module}', *args],
+        cwd=cwd, env=dict(os.environ, PYTHONPATH=REPO, **env), text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def wait_cli(started, label: str) -> float:
+    """Wait for a ``start_cli`` process; raise with its errors unless it
+    exits 0, kill it if it outlives 600 s.  Returns its seconds."""
+    start, proc = started
+    try:
+        _, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    if proc.returncode != 0:
+        raise AssertionError(f'{label} failed:\n{err[-3000:]}')
+    return time.perf_counter() - start
+
+
+def kill_clis(*started) -> None:
+    """Stop the ``start_cli`` processes still running."""
+    for _, proc in started:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
 
 
 def cli_train_eval(label: str, train_args, eval_args, out: str, heads,
@@ -2419,7 +2509,7 @@ def tracking_stream(port, card: str) -> dict:
 
     captured, chains = [], []
     launch, launch_chain = (port.cif_hr.cif_hr_accumulate,
-                            port.pair_chain.pair_chain)
+                            port.pair_chain.apply_chain)
 
     def spy(*args, **kwargs):
         captured.append(([a.clone() for a in args], dict(kwargs)))
@@ -2431,13 +2521,13 @@ def tracking_stream(port, card: str) -> dict:
 
     # warm-up on two frames, keeping what they hand K1 and K2
     port.cif_hr.cif_hr_accumulate = spy
-    port.pair_chain.pair_chain = spy_chain
+    port.pair_chain.apply_chain = spy_chain
     try:
         for frame in frames[:2]:
             processor.process(frame)
     finally:
         port.cif_hr.cif_hr_accumulate = launch
-        port.pair_chain.pair_chain = launch_chain
+        port.pair_chain.apply_chain = launch_chain
     decoder.reset()
     processor.prev_features = None
 
@@ -2583,55 +2673,50 @@ def tracking_clis(port, tmp: str, shifted: str) -> None:
     model saved as a checkpoint, so that they run with poses: the eval CLI
     must predict poses, and the video CLI, on PNG frames written by
     ``image_io.write_png`` (the card's machine has no PIL), must write
-    poses on every frame and carry ids from frame to frame."""
-    out = os.path.join(tmp, 'toykpst')
-    cli_train_eval('toykpst', ['--dataset=toykpst',
-                               '--basenet=tshufflenetv2k16',
-                               f'--toykpst-n-images={CLI_IMAGES}'],
-                   ['--dataset=toykpst'], out, ['cif', 'caf', 'tcaf'],
-                   extra_labels=POSETRACK_LABELS)
-    env = dict(os.environ, PYTHONPATH=REPO)
-    start = time.perf_counter()
-    result = subprocess.run(
-        [sys.executable, '-m', 'openpifpaf_tpu_torch.eval',
-         f'--checkpoint={shifted}', f'--batch-size={EVAL_BATCH}',
-         '--dataset=toykpst', '-o', shifted + '.eval'],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
-    if result.returncode != 0:
-        raise AssertionError('eval CLI on the shifted checkpoint failed:\n'
-                             f'{result.stderr[-3000:]}')
-    with open(shifted + '.eval.stats.json') as f:
-        stats = json.load(f)
-    stats = dict(zip(stats['text_labels'], stats['stats']))
-    predicted = stats['n_gt'] - stats['misses'] + stats['false_positives']
-    print(f'eval CLI on the shifted checkpoint: exit 0 in '
-          f'{time.perf_counter() - start:.1f} s, stats {stats}; poses '
-          f'predicted {predicted:g}', flush=True)
-    if not (predicted > 0 and all(np.isfinite(list(stats.values())))):
-        raise AssertionError(f'eval CLI on the shifted checkpoint: {stats}')
-
+    poses on every frame and carry ids from frame to frame.  The CLIs on
+    ``shifted`` run beside the toykpst ones."""
     frames_dir = os.path.join(tmp, 'frames')
     os.makedirs(frames_dir)
     for i, frame in enumerate(track_frames(4, TRACK_CLI_FRAMES)):
         port.image_io.write_png(os.path.join(frames_dir, f'{i:04d}.png'),
                                 frame[:TRACK_CLI_EDGE, :TRACK_CLI_EDGE])
-    start = time.perf_counter()
-    result = subprocess.run(
-        [sys.executable, '-m', 'openpifpaf_tpu_torch.video', '--source',
-         frames_dir, f'--checkpoint={shifted}',
-         f'--long-edge={TRACK_CLI_EDGE}', '--json-output',
-         shifted + '.video.jsonl'],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
-    if result.returncode != 0:
-        raise AssertionError(f'video CLI failed:\n{result.stderr[-3000:]}')
+    shifted_eval = start_cli('eval', [
+        f'--checkpoint={shifted}', f'--batch-size={EVAL_BATCH}',
+        '--dataset=toykpst', '-o', shifted + '.eval'])
+    video = start_cli('video', [
+        '--source', frames_dir, f'--checkpoint={shifted}',
+        f'--long-edge={TRACK_CLI_EDGE}', '--json-output',
+        shifted + '.video.jsonl'])
+    try:
+        out = os.path.join(tmp, 'toykpst')
+        cli_train_eval('toykpst', ['--dataset=toykpst',
+                                   '--basenet=tshufflenetv2k16',
+                                   f'--toykpst-n-images={CLI_IMAGES}'],
+                       ['--dataset=toykpst'], out, ['cif', 'caf', 'tcaf'],
+                       extra_labels=POSETRACK_LABELS)
+        eval_s = wait_cli(shifted_eval, 'eval CLI on the shifted checkpoint')
+        video_s = wait_cli(video, 'video CLI')
+    except BaseException:
+        kill_clis(shifted_eval, video)
+        raise
+
+    with open(shifted + '.eval.stats.json') as f:
+        stats = json.load(f)
+    stats = dict(zip(stats['text_labels'], stats['stats']))
+    predicted = stats['n_gt'] - stats['misses'] + stats['false_positives']
+    print(f'eval CLI on the shifted checkpoint: exit 0 in {eval_s:.1f} s, '
+          f'stats {stats}; poses predicted {predicted:g}', flush=True)
+    if not (predicted > 0 and all(np.isfinite(list(stats.values())))):
+        raise AssertionError(f'eval CLI on the shifted checkpoint: {stats}')
+
     with open(shifted + '.video.jsonl') as f:
         lines = [json.loads(line) for line in f]
     ids = [{p['id_'] for p in line['predictions']} for line in lines]
     carried = [len(a & b) for a, b in zip(ids, ids[1:])]
     print(f'video CLI on the card, shifted checkpoint: exit 0 in '
-          f'{time.perf_counter() - start:.1f} s, {len(lines)} json lines, '
-          f'poses per frame {[len(l["predictions"]) for l in lines]}, ids '
-          f'carried from the frame before {carried}', flush=True)
+          f'{video_s:.1f} s, {len(lines)} json lines, poses per frame '
+          f'{[len(l["predictions"]) for l in lines]}, ids carried from the '
+          f'frame before {carried}', flush=True)
     if ([line['frame'] for line in lines] != list(range(TRACK_CLI_FRAMES))
             or not all(ids) or not all(carried)):
         raise AssertionError(f'video CLI json lines: {lines[:2]}')
@@ -2885,25 +2970,24 @@ def detect_serve(port, card: str) -> dict:
     return dict(counts=counts, k1=k1, e2e=run['e2e'])
 
 
-def multi_task_train(tmp: str) -> None:
+def multi_task_train(tmp: str):
     """(c1) ``python -m openpifpaf_tpu_torch.train --dataset toykp,cifar10
-    --basenet shufflenetv2k16`` for one epoch on the card: every logged
-    head loss finite (the heads without targets in a batch at 0), a val
-    line, and a checkpoint with the three heads."""
+    --basenet shufflenetv2k16`` for one epoch on the card, started;
+    ``check_multi_task_train`` reads it."""
+    return start_cli('train', [
+        '--epochs=1', '--dataset=toykp,cifar10', '--basenet=shufflenetv2k16',
+        f'--batch-size={TRAIN_BATCH}', f'--toykp-image-size={MULTI_EDGE}',
+        f'--toykp-n-images={MULTI_IMAGES}',
+        f'--cifar10-n-synthetic={MULTI_IMAGES}', '--log-interval=1',
+        '--output', os.path.join(tmp, 'multi')])
+
+
+def check_multi_task_train(tmp: str, started) -> None:
+    """(c1) every logged head loss of the multi-task train CLI finite (the
+    heads without targets in a batch at 0), a val line, and a checkpoint
+    with the three heads."""
     out = os.path.join(tmp, 'multi')
-    env = dict(os.environ, PYTHONPATH=REPO)
-    start = time.perf_counter()
-    result = subprocess.run(
-        [sys.executable, '-m', 'openpifpaf_tpu_torch.train', '--epochs=1',
-         '--dataset=toykp,cifar10', '--basenet=shufflenetv2k16',
-         f'--batch-size={TRAIN_BATCH}', f'--toykp-image-size={MULTI_EDGE}',
-         f'--toykp-n-images={MULTI_IMAGES}',
-         f'--cifar10-n-synthetic={MULTI_IMAGES}', '--log-interval=1',
-         '--output', out],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
-    if result.returncode != 0:
-        raise AssertionError('multi-task train CLI failed:\n'
-                             f'{result.stderr[-3000:]}')
+    seconds = wait_cli(started, 'multi-task train CLI')
     from openpifpaf_tpu_torch.models import checkpoint
 
     heads = [(type(m).__name__, m.name)
@@ -2912,8 +2996,8 @@ def multi_task_train(tmp: str) -> None:
         lines = [json.loads(line) for line in f]
     train = [l['head_losses'] for l in lines if l['type'] == 'train']
     val = [l for l in lines if l['type'] == 'val-epoch']
-    print(f'multi-task train CLI (toykp,cifar10): exit 0 in '
-          f'{time.perf_counter() - start:.1f} s, {len(train)} train lines, '
+    print(f'multi-task train CLI (toykp,cifar10): exit 0 in {seconds:.1f} '
+          f's, {len(train)} train lines, '
           f'head losses (cif, caf, cifdet: 3 each) of the first two '
           f'{train[:2]}, val {val[0]["head_losses"] if val else None}; '
           f'checkpoint heads {heads}', flush=True)
@@ -2963,20 +3047,18 @@ def three_head_checkpoint(port, path: str) -> dict:
     return k1
 
 
-def predict_cli(tmp: str, label: str, paths, checkpoint: str, out: str,
-                extra) -> list:
-    """``python -m openpifpaf_tpu_torch.predict`` on ``paths``; returns each
-    image's json as (poses, boxes)."""
+def start_predict(tmp: str, paths, checkpoint: str, out: str, extra):
+    """``python -m openpifpaf_tpu_torch.predict`` on ``paths``, started;
+    ``predict_jsons`` reads it."""
     os.makedirs(out)
-    env = dict(os.environ, PYTHONPATH=REPO, NVIDIA_TF32_OVERRIDE='0')
-    start = time.perf_counter()
-    result = subprocess.run(
-        [sys.executable, '-m', 'openpifpaf_tpu_torch.predict', *paths,
-         f'--checkpoint={checkpoint}', f'--json-output={out}'] + extra,
-        cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
-    if result.returncode != 0:
-        raise AssertionError(f'{label} predict CLI failed:\n'
-                             f'{result.stderr[-3000:]}')
+    return start_cli('predict', [*paths, f'--checkpoint={checkpoint}',
+                                 f'--json-output={out}', *extra],
+                     cwd=tmp, NVIDIA_TF32_OVERRIDE='0')
+
+
+def predict_jsons(label: str, started, paths, out: str) -> list:
+    """Each image's json of a ``start_predict`` run as (poses, boxes)."""
+    seconds = wait_cli(started, f'{label} predict CLI')
     jsons = []
     for path in paths:
         with open(os.path.join(out, os.path.basename(path)
@@ -2984,9 +3066,8 @@ def predict_cli(tmp: str, label: str, paths, checkpoint: str, out: str,
             data = json.load(f)
         jsons.append(([d for d in data if 'keypoints' in d],
                       [d for d in data if 'keypoints' not in d]))
-    print(f'{label} predict CLI: exit 0 in '
-          f'{time.perf_counter() - start:.1f} s, (poses, boxes) per image '
-          f'{[(len(p), len(b)) for p, b in jsons]}', flush=True)
+    print(f'{label} predict CLI: exit 0 in {seconds:.1f} s, (poses, boxes) '
+          f'per image {[(len(p), len(b)) for p, b in jsons]}', flush=True)
     for poses, boxes in jsons:
         values = [v for d in poses for v in d['keypoints']] + \
             [v for d in poses + boxes for v in d['bbox'] + [d['score']]]
@@ -3031,12 +3112,14 @@ def hold_predict_jsons(card, cpu, label: str) -> None:
         raise AssertionError(f'{label}: card and CPU predictions differ')
 
 
-def multi_task_predict(port, tmp: str, checkpoint: str) -> None:
+def multi_task_predict(port, tmp: str, checkpoint: str, train) -> None:
     """(c2) The predict CLI on the calibrated three-head checkpoint: 8 PNGs
     of 641 px on the card, each json with poses and boxes; then 2 PNGs of
     ``MULTI_EDGE`` px on the card and on the CPU, f32 (``--no-bf16``, TF32
     off by ``NVIDIA_TF32_OVERRIDE=0``; the CPU decode with the card's f32
-    CifHr profiles), held by ``hold_predict_jsons``."""
+    CifHr profiles), held by ``hold_predict_jsons``.  The three run beside
+    each other and the multi-task train CLI ``train``, then (c1) is
+    checked."""
     rng = np.random.default_rng(13)
     folder = os.path.join(tmp, 'predict_images')
     os.makedirs(folder)
@@ -3049,31 +3132,40 @@ def multi_task_predict(port, tmp: str, checkpoint: str) -> None:
         small.append(os.path.join(folder, f'small{i}.png'))
         port.image_io.write_png(small[-1], rng.integers(0, 256, shape,
                                                        dtype=np.uint8))
-    predict_cli(tmp, f'multi-task {SERVE_EDGE} px, card', big, checkpoint,
-                os.path.join(tmp, 'json_big'),
-                [f'--batch-size={SERVE_BATCH}', f'--long-edge={SERVE_EDGE}',
-                 f'--cifdet-seed-threshold={DET_SEED_THRESHOLD}'])
     small_args = ['--batch-size=2', f'--long-edge={MULTI_EDGE}', '--no-bf16',
                   f'--cifdet-seed-threshold={DET_SEED_THRESHOLD}']
-    card = predict_cli(tmp, f'multi-task {MULTI_EDGE} px, card', small,
-                       checkpoint, os.path.join(tmp, 'json_card'), small_args)
-    cpu = predict_cli(tmp, f'multi-task {MULTI_EDGE} px, CPU', small,
-                      checkpoint, os.path.join(tmp, 'json_cpu'),
-                      small_args + ['--device=cpu', '--cifhr-f32-profiles'])
+    runs = [(f'multi-task {SERVE_EDGE} px, card', big, 'json_big',
+             [f'--batch-size={SERVE_BATCH}', f'--long-edge={SERVE_EDGE}',
+              f'--cifdet-seed-threshold={DET_SEED_THRESHOLD}']),
+            (f'multi-task {MULTI_EDGE} px, card', small, 'json_card',
+             small_args),
+            (f'multi-task {MULTI_EDGE} px, CPU', small, 'json_cpu',
+             small_args + ['--device=cpu', '--cifhr-f32-profiles'])]
+    started = []
+    try:
+        for _, paths, out, extra in runs:
+            started.append(start_predict(tmp, paths, checkpoint,
+                                         os.path.join(tmp, out), extra))
+        check_multi_task_train(tmp, train)
+        _, card, cpu = [predict_jsons(label, proc, paths,
+                                      os.path.join(tmp, out))
+                        for (label, paths, out, _), proc in zip(runs, started)]
+    except BaseException:
+        kill_clis(train, *started)
+        raise
     hold_predict_jsons(card, cpu, f'multi-task predict at {MULTI_EDGE} px, '
                                   f'card vs CPU')
 
 
 def detect_phase(port, card: str, tmp: str) -> dict:
-    """Detection: (b) the cocodet serve with (a) K1 at its inputs, (c) the
-    multi-task train CLI, the calibrated three-head checkpoint with (a) K1
-    at cifar10's shape, and the predict CLI on it."""
+    """Detection: (b) the cocodet serve with (a) K1 at its inputs, the
+    calibrated three-head checkpoint with (a) K1 at cifar10's shape, then
+    (c) the multi-task train CLI beside the predict CLI on the checkpoint."""
     start = time.perf_counter()
     served = detect_serve(port, card)
-    multi_task_train(tmp)
     checkpoint = os.path.join(tmp, 'three_heads.npz')
     k1_cifar10 = three_head_checkpoint(port, checkpoint)
-    multi_task_predict(port, tmp, checkpoint)
+    multi_task_predict(port, tmp, checkpoint, multi_task_train(tmp))
     print(f'detect phase: {time.perf_counter() - start:.1f} s ({card})',
           flush=True)
     return dict(counts=served['counts'], k1=served['k1'],
@@ -4017,7 +4109,7 @@ def posetrack_eval_run(port, card: str, paths: dict) -> dict:
 
     captured, held = {}, []
     launch, launch_chain = (port.cif_hr.cif_hr_accumulate,
-                            port.pair_chain.pair_chain)
+                            port.pair_chain.apply_chain)
 
     def spy(*args, **kwargs):
         captured.setdefault('cif_hr', ([a.clone() for a in args],
@@ -4050,14 +4142,14 @@ def posetrack_eval_run(port, card: str, paths: dict) -> dict:
 
     decoder.batch_fields = keep
     port.cif_hr.cif_hr_accumulate = spy
-    port.pair_chain.pair_chain = spy_chain
+    port.pair_chain.apply_chain = spy_chain
     torch.cuda.reset_peak_memory_stats()
     zero_counts(port)
     try:
         stats = port.eval_mod.Evaluator(dm, predictor).run()
     finally:
         port.cif_hr.cif_hr_accumulate = launch
-        port.pair_chain.pair_chain = launch_chain
+        port.pair_chain.apply_chain = launch_chain
         del decoder.batch_fields
     counts = dict(k1=port.cif_hr.KERNEL_LAUNCHES,
                   k1_cuda=port.cif_hr.CUDA_LAUNCHES,
@@ -4266,6 +4358,245 @@ def posetrack_phase(port, card: str, tmp: str, coco_paths: dict) -> dict:
     return dict(train=train, cocokpst=st_train, counts=counts, k1=k1, k2=k2)
 
 
+# ------------------------------------------------------------------ export
+EXPORT_BATCH = 8
+EXPORT_EDGE = 641
+EXPORT_SIZE = ['--input-height', str(EXPORT_EDGE), '--input-width',
+               str(EXPORT_EDGE)]
+
+
+def export_clis(tmp: str) -> dict:
+    """The export CLIs on the card, all started at once: the program of
+    seeded sn2k16 with cocokp's heads (bf16) at batch 8 and with
+    ``--dynamic-batch``, ONNX with ``--verify`` for sn2k16 and swin_t (f32,
+    TF32 off), count_ops, and the CoreML CLI.  Returns name -> (exit code,
+    output, seconds)."""
+    sn = ['--basenet', 'shufflenetv2k16']
+    runs = {
+        'program': ['export_program', *sn, '--batch-size',
+                    str(EXPORT_BATCH), '--outfile', f'{tmp}/static.pt2',
+                    *EXPORT_SIZE],
+        'program dynamic': ['export_program', *sn, '--dynamic-batch',
+                            '--outfile', f'{tmp}/dynamic.pt2', *EXPORT_SIZE],
+        'onnx shufflenetv2k16': ['export_onnx', *sn, '--no-bf16', '--verify',
+                                 '--outfile', f'{tmp}/shufflenetv2k16.onnx',
+                                 *EXPORT_SIZE],
+        'onnx swin_t': ['export_onnx', '--basenet', 'swin_t', '--no-bf16',
+                        '--verify', '--outfile', f'{tmp}/swin_t.onnx',
+                        *EXPORT_SIZE],
+        'count_ops': ['count_ops', *sn, '--long-edge', str(EXPORT_EDGE)],
+        'coreml': ['export_coreml', *sn],
+    }
+    env = dict(os.environ, PYTHONPATH=REPO, NVIDIA_TF32_OVERRIDE='0')
+    procs = {}
+    for name, (module, *args) in runs.items():
+        procs[name] = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, '-m', f'openpifpaf_tpu_torch.{module}', *args],
+            cwd=REPO, env=env, text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT))
+    results = {}
+    for name, (start, proc) in procs.items():
+        try:
+            out = proc.communicate(timeout=600)[0]
+        finally:
+            proc.kill()
+        results[name] = (proc.returncode, out, time.perf_counter() - start)
+    for name, (rc, out, _) in results.items():
+        if rc != (1 if name == 'coreml' else 0):
+            raise AssertionError(f'{name} CLI exit {rc}:\n{out[-3000:]}')
+    return results
+
+
+def export_batches(seed: int = 5):
+    """Three staged batches of 8 NCHW float32 images at 641 px on the
+    card (standard normal, as normalized images are about)."""
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.normal(size=(EXPORT_BATCH, 3, EXPORT_EDGE,
+                                             EXPORT_EDGE)).astype(np.float32),
+                            device='cuda') for _ in range(3)]
+
+
+def hold_program(pc, run, model, x, label: str) -> float:
+    """One call of an exported program against eager ``Model.__call__``:
+    K2 launched 3 times (13 blocks, 26 CUDA kernels), and every head equal
+    to eager bit for bit (the program is the module that serves, traced:
+    a cast or an autocast region it lost would show here).  Returns the
+    largest max|d| (0)."""
+    pc.KERNEL_LAUNCHES = pc.CUDA_LAUNCHES = 0
+    with torch.no_grad():
+        got = run(x)
+    calls, kernels = pc.KERNEL_LAUNCHES, pc.CUDA_LAUNCHES
+    want = model(x)
+    if (calls, kernels) != (len(SN2K16_CHAINS),
+                            KERNELS_PER_BLOCK * SN2K16_BLOCKS):
+        raise AssertionError(f'{label}: K2 {calls} calls ({kernels} CUDA '
+                             f'kernels), want 3 (26)')
+    if len(got) != len(want) or not all(
+            g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+            for g, w in zip(got, want)):
+        diffs = [(tuple(g.shape), g.dtype, float((g.float() - w.float())
+                                                  .abs().max()))
+                 if g.shape == w.shape else (tuple(g.shape), g.dtype)
+                 for g, w in zip(got, want)]
+        raise AssertionError(f'{label}: exported program differs from '
+                             f'eager: {diffs}')
+    worst = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    print(f'{label}: K2 {calls} calls ({kernels} CUDA kernels), every head '
+          f'equal to eager (torch.equal; max|d| {worst:.3e})', flush=True)
+    return worst
+
+
+def per_image_ms(fn, batches) -> str:
+    """Median [min, max] ms per image of ``fn`` over 12 chained calls on
+    the staged batches (CUDA events), after 2 warm-up calls."""
+    for x in batches[:2]:
+        fn(x)
+    times = []
+    for i in range(12):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(batches[i % len(batches)])
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / EXPORT_BATCH)
+    return f'{np.median(times):.4f} [{min(times):.4f}, {max(times):.4f}]'
+
+
+def hold_chain_op(pc, chains) -> dict:
+    """``torch.ops.openpifpaf_tpu_torch.pair_chain`` on the card at the
+    export's three chain inputs, held to the op's CPU implementation
+    (``packed_plain``) on the same inputs on the card (3e-2 of max|plain|,
+    bf16) and, for the first image, through the op on CPU tensors; both
+    timed (CUDA events, median of 10) beside the bound."""
+    op = torch.ops.openpifpaf_tpu_torch.pair_chain
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
+                 shape=[], by_ops=0.0)
+    for a, b, chain in chains:
+        args = (chain.w1, chain.w2, chain.vec, chain.dwk, chain.channels)
+        got = op(a, b, *args)
+        want = pc.packed_plain(a, b, *args)
+        cpu = op(a[:1].cpu(), b[:1].cpu(), *(t.cpu() for t in args[:4]),
+                 chain.channels)
+        worst, err = 0.0, 0.0
+        for g, w, c in zip(got, want, cpu):
+            for ref, mine in ((w, g), (c, g[:1].cpu())):
+                d = float((mine.float() - ref.float()).abs().max())
+                err = max(err, d)
+                worst = max(worst, d / float(ref.float().abs().max()))
+        if not worst <= 3e-2:
+            raise AssertionError(f'pair_chain op {tuple(a.shape)}: {worst}')
+        ms = cuda_ms(lambda: op(a, b, *args))[0]
+        plain = cuda_ms(lambda: pc.packed_plain(a, b, *args))[0]
+        bsz, h, w, c = a.shape
+        bound, bound_by, _, _ = chain_bound_ms(chain.w1.shape[0],
+                                               bsz * h * w, c, 2)
+        print(f'pair_chain op {tuple(a.shape)}: max|op - CPU implementation| '
+              f'{err:.3e} (max|d|/max|plain| {worst:.3e}, limit 3e-2; on '
+              f'the card and on the CPU for image 0), op {ms:.4f} ms, plain '
+              f'{plain:.4f} ms, bound {bound:.4f} ms by {bound_by}',
+              flush=True)
+        total['ms'] += ms
+        total['plain_ms'] += plain
+        total['bound_ms'] += bound
+        total['by_ops'] += bound if bound_by == 'operations' else 0.0
+        total['max_abs_err'] = max(total['max_abs_err'], err)
+        total['shape'].append(list(a.shape))
+    total['bound_by'] = ('operations' if 2 * total.pop('by_ops')
+                         >= total['bound_ms'] else 'bytes')
+    return total
+
+
+def export_phase(port, card: str, tmp: str) -> dict:
+    """Export: the CLIs on the card (``export_clis``); the
+    exported sn2k16 program (bf16, 641 px, batch 8) on 3 staged batches
+    held to eager ``Model.__call__`` with K2 launched 3 times per batch,
+    ms per image of both; the ``--dynamic-batch`` program at batch 1 and
+    8; ONNX ``--verify`` of sn2k16 and swin_t; count_ops and the flop
+    counter's totals over the served and canonical forwards; the CoreML
+    refusal; the K2 operator held to its CPU implementation at the
+    export's chain inputs."""
+    from openpifpaf_tpu_torch import count_ops, export_program, onnx_native
+    from openpifpaf_tpu_torch.plugins.coco.cocokp import CocoKp
+
+    pc = port.pair_chain
+    start = time.perf_counter()
+    clis = export_clis(tmp)
+    for name, (rc, out, seconds) in clis.items():
+        print(f'{name} CLI: exit {rc} in {seconds:.1f} s; '
+              f'{out.strip().splitlines()[-1]}', flush=True)
+
+    model = port.models.factory('shufflenetv2k16', CocoKp().head_metas,
+                                device='cuda', bf16=True, seed=0)
+    batches = export_batches()
+    program = export_program.load_exported(f'{tmp}/static.pt2')
+    run = program.module()
+    launches = 0
+    for i, x in enumerate(batches):
+        hold_program(pc, run, model, x, f'exported program, batch {i}')
+        launches += len(SN2K16_CHAINS)
+    with torch.no_grad():
+        exported_ms = per_image_ms(run, batches)
+    eager_ms = per_image_ms(model, batches)
+    print(f'forward ms per image, median [min, max] of 12 chained batches '
+          f'of 8 (CUDA events): exported {exported_ms}, eager '
+          f'Model.__call__ {eager_ms} ({card})', flush=True)
+
+    dynamic = export_program.load_exported(f'{tmp}/dynamic.pt2').module()
+    for n in (1, EXPORT_BATCH):
+        hold_program(pc, dynamic, model, batches[0][:n],
+                     f'--dynamic-batch program at batch {n}')
+        launches += len(SN2K16_CHAINS)
+
+    for name in ('shufflenetv2k16', 'swin_t'):
+        rc, out, seconds = clis[f'onnx {name}']
+        found = re.search(r'verify: max abs deviation (\S+)', out)
+        with open(f'{tmp}/{name}.onnx', 'rb') as f:
+            data = f.read()
+        parsed = onnx_native.parse_model(data)
+        if not found or len(parsed['outputs']) != 2:
+            raise AssertionError(f'ONNX {name}: no verify line or outputs')
+        print(f'ONNX {name} (f32, TF32 off, 641 px): --verify max '
+              f'deviation {found.group(1)} (atol 1e-3, interpreter on the '
+              f'card), {len(data)} bytes, {len(parsed["nodes"])} nodes, '
+              f'{seconds:.1f} s', flush=True)
+
+    printed = re.findall(r'^(?:GMACs|GFLOPs|params): .*$',
+                         clis['count_ops'][1], re.M)
+    canonical = count_ops.count(model, (EXPORT_EDGE, EXPORT_EDGE))
+    served = count_ops.count(model, (EXPORT_EDGE, EXPORT_EDGE), forward=model)
+    if len(printed) != 3 or served['gflops'] != canonical['gflops']:
+        raise AssertionError(f'count_ops: {printed}, served {served}, '
+                             f'canonical {canonical}')
+    print(f'count_ops sn2k16 at {EXPORT_EDGE} px: {", ".join(printed)}; flop '
+          f'counter total over the served forward (K2 by its formula) '
+          f'{served["gflops"]:.6f} GFLOPs, over the canonical forward '
+          f'{canonical["gflops"]:.6f} GFLOPs', flush=True)
+
+    coreml = clis['coreml'][1]
+    if 'CoreML export unavailable' not in coreml \
+            or 'export_program' not in coreml:
+        raise AssertionError(f'CoreML CLI message: {coreml[-2000:]}')
+    print(f'CoreML CLI: exit 1, "{coreml.strip().splitlines()[-1]}"',
+          flush=True)
+
+    chains = []
+    launch_chain = pc.apply_chain
+
+    def spy_chain(a, b, chain):
+        chains.append((a.clone(), b.clone(), chain))
+        return launch_chain(a, b, chain)
+
+    pc.apply_chain = spy_chain
+    try:
+        model(batches[0])
+    finally:
+        pc.apply_chain = launch_chain
+    k2 = hold_chain_op(pc, chains)
+    print(f'export phase: {time.perf_counter() - start:.1f} s', flush=True)
+    return dict(launches=launches, k2=k2)
+
+
 class _Port:
     """The port's modules, imported after the card check."""
 
@@ -4343,14 +4674,20 @@ def main() -> int:
                                          chain, modules))
     k2_main = {key: sum(c[key] for c in chains)
                for key in ('ms', 'plain_ms', 'canonical_ms', 'bound_ms')}
+    hidden = {key: sum(c[key] for c in chains)
+              for key in ('device_ms', 'enqueue_ms', 'launch_enqueue_ms')}
     by_ops = sum(c['bound_ms'] for c in chains
                  if c['bound_by'] == 'operations')
     k2_main['bound_by'] = ('operations' if 2 * by_ops >= k2_main['bound_ms']
                            else 'bytes')
     k2_err = max(r['max_abs_err'] for r in chains + list(k2.values()))
     print(f'pair_chain per served batch (3 chains): kernel '
-          f'{k2_main["ms"]:.4f} ms, plain {k2_main["plain_ms"]:.4f} ms, '
-          f'canonical modules {k2_main["canonical_ms"]:.4f} ms, bound '
+          f'{k2_main["ms"]:.4f} ms ({hidden["device_ms"]:.4f} ms with the '
+          f'host\'s enqueueing hidden; enqueueing '
+          f'{hidden["enqueue_ms"]:.4f} ms through the operator, '
+          f'{hidden["launch_enqueue_ms"]:.4f} ms without the '
+          f'dispatcher), plain {k2_main["plain_ms"]:.4f} ms, canonical '
+          f'modules {k2_main["canonical_ms"]:.4f} ms, bound '
           f'{k2_main["bound_ms"]:.4f} ms ({k2_main["bound_by"]})', flush=True)
 
     if profile_on:
@@ -4377,6 +4714,9 @@ def main() -> int:
         coco = coco_phase(port, card, tmp)
         phase('posetrack')
         posetrack = posetrack_phase(port, card, tmp, coco['paths'])
+    with tempfile.TemporaryDirectory() as tmp:
+        phase('export')
+        exported = export_phase(port, card, tmp)
     k1_backbones = [r['k1'] for r in backbones['served'].values()]
     max_err = max([max_err, wholebody['k1']['max_abs_err'],
                    tracked['k1']['max_abs_err'],
@@ -4390,7 +4730,8 @@ def main() -> int:
                      if kind == 'cif_hr'])
     k2_err = max([k2_err, wholebody['k2']['max_abs_err'],
                   tracked['k2']['max_abs_err'], coco['k2']['max_abs_err'],
-                  posetrack['k2']['max_abs_err']]
+                  posetrack['k2']['max_abs_err'],
+                  exported['k2']['max_abs_err']]
                  + [r['max_abs_err'] for kind, r in evaluated['checks']
                     if kind == 'pair_chain'])
     eval_counts = evaluated['runs']['multi-scale force-complete']['counts']
@@ -4451,6 +4792,8 @@ def main() -> int:
         'coco': {'cocokp': at_new_shape(coco['k2'])},
         'posetrack_launches': posetrack['counts']['k2'],
         'posetrack': at_new_shape(posetrack['k2']),
+        'export_launches': exported['launches'],
+        'export': at_new_shape(exported['k2']),
         'max_abs_err': k2_err, 'max_abs_diff': k2_err,
         'ms': k2_main['ms'], 'plain_ms': k2_main['plain_ms'],
         'bound_ms': k2_main['bound_ms'], 'bound_by': k2_main['bound_by'],

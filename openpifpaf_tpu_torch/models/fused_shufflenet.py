@@ -33,7 +33,7 @@ once after conv1, and the features leave as ``(B, H, W, C)``.
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Union
+from typing import Dict, NamedTuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -269,14 +269,3 @@ def backbone_features(module: ShuffleNetV2K, x: torch.Tensor,
     apply = backbone_apply_pair if plan.pair else backbone_apply
     return apply(module, x, plan)
 
-
-def shell_apply(model, x: torch.Tensor) -> List[torch.Tensor]:
-    """Full inference forward: the fused backbone, then the unmodified
-    heads (under bf16 autocast when ``model.bf16``, as ``Model.apply``).
-    ``x``: NCHW float32 images on the model's device."""
-    features = backbone_features(model.module.basenet, x,
-                                 model.inference_plan())
-    features = features.permute(0, 3, 1, 2)      # NCHW view, channels-last
-    with torch.autocast(model.device.type, dtype=torch.bfloat16,
-                        enabled=model.bf16):
-        return [head(features) for head in model.module.head_nets]

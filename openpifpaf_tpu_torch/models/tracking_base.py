@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from . import fused_shufflenet
-from .shell import Model, Shell
+from .shell import Model, Shell, apply_heads
 from .. import headmeta as headmeta_mod
 
 
@@ -43,9 +43,7 @@ class TrackingShell(Shell):
 
     def heads_from_features(self, feats: torch.Tensor) -> List[torch.Tensor]:
         """The heads on the features of interleaved pairs (2B, C, h, w)."""
-        paired = torch.cat([feats[0::2], feats[1::2]], dim=1)
-        return [head(paired if is_paired else feats)
-                for head, is_paired in zip(self.head_nets, self.head_paired)]
+        return apply_heads(self.head_nets, feats, self.head_paired)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         return self.heads_from_features(self.backbone_features(x))
@@ -54,11 +52,12 @@ class TrackingShell(Shell):
 class TrackingModel(Model):
     """Model over frame pairs.
 
-    ``apply_fast`` (and so ``__call__``) is not the generic one: the
-    generic fused path would feed single-frame features to the paired
-    head.  It runs the fused backbone (the pair plan, with the stride-1
-    chains on K2 on the card) on the interleaved frames and dispatches the
-    heads through ``TrackingShell.heads_from_features``."""
+    ``apply_fast`` (and so ``__call__``) is ``Model``'s: ``ServedForward``
+    runs the fused backbone (the pair plan, with the stride-1 chains on K2
+    on the card) on the interleaved frames and dispatches the heads by the
+    shell's ``head_paired``, as ``TrackingShell.heads_from_features``.
+    ``backbone_features`` and ``heads_from_features`` are the two halves
+    for a video stream."""
 
     def _fused(self) -> bool:
         return (self.fused_inference
@@ -83,10 +82,6 @@ class TrackingModel(Model):
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.bf16):
             return self.module.heads_from_features(feats)
-
-    @torch.no_grad()
-    def apply_fast(self, x: torch.Tensor) -> List[torch.Tensor]:
-        return self.heads_from_features(self.backbone_features(x))
 
 
 def is_tracking_metas(head_metas) -> bool:

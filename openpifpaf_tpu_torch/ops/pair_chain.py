@@ -13,17 +13,28 @@ with ``q = C / 2``:
 
 and the state becomes ``(x1, v)``.
 
-On the card a chain runs on the hand-written kernel ``csrc/pair_chain.cu``
-(``pair_chain``), which replaces the TPU kernel
-``openpifpaf_tpu/ops/pallas_pair_chain.py::pair_chain_pallas``.  Beside it,
-``pair_chain_plain`` is the plain PyTorch version, the translation of the
-whole-image ``_chain_math`` (``pallas_pair_chain.py:94-159``, the
-``row0=None`` path).  ``apply_chain`` takes the plain version for CPU
-tensors only; a CUDA tensor launches the kernel or raises.  The Pallas
-kernel's row bands and halos are a device of the TPU's VMEM and are not
-carried over: the kernel computes the whole-image SAME semantics that the
-banded kernel reproduces.  ``launch_plan`` chooses the kernel's tiles,
-rings, shared memory and grids in Python; ``expand_tile_pixels``,
+On the card a chain runs on the hand-written kernel ``csrc/pair_chain.cu``,
+which replaces the TPU kernel
+``openpifpaf_tpu/ops/pallas_pair_chain.py::pair_chain_pallas``.  The kernel
+is bound as the PyTorch operator ``openpifpaf_tpu_torch::pair_chain``
+(``pair_chain_op``), so that ``torch.export`` can trace a forward through
+it: its schema holds the packed tensors of ``PackedChain`` and the width,
+its CUDA implementation launches the kernel, its CPU implementation is
+``pair_chain_plain``'s math on the same packed tensors (``packed_plain``),
+and its fake implementation gives the output shapes.  It has no autograd
+formula: K2 is inference only, and a backward through it raises.
+``register_flop_formula`` gives ``torch.utils.flop_counter`` its products
+and taps.  ``pair_chain_plain`` is the plain PyTorch version, the
+translation of the whole-image ``_chain_math``
+(``pallas_pair_chain.py:94-159``, the ``row0=None`` path).
+``apply_chain`` calls the operator, whose dispatch routes by the pair's
+device and nothing else: the plain version for CPU tensors, the kernel for
+CUDA tensors or an error.  ``pair_chain``, the kernel's wrapper, takes CUDA
+tensors only.  The Pallas kernel's row bands and halos are a device of the
+TPU's VMEM and are not carried over: the kernel computes the whole-image
+SAME semantics that the banded kernel reproduces.  ``launch_plan`` chooses
+the kernel's tiles, rings, shared memory and grids in Python, from the
+run-time shapes inside the CUDA implementation; ``expand_tile_pixels``,
 ``project_tile_pixels`` and ``cta_units`` map them to pixels and units as
 the kernel does, for the CPU tests.
 """
@@ -32,12 +43,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import kernels
 from ..models.base import BN_EPSILON
@@ -463,24 +475,51 @@ def _check_operand(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
                          f'boundary')
 
 
-def pair_chain(a: torch.Tensor, b: torch.Tensor, chain: PackedChain):
-    """The CUDA kernel: the chain on (B, H, W, C) bfloat16 or float32 CUDA
-    tensors, computed in their type with float32 accumulation, with the
-    parameters ``pack`` laid out for that type and device.  Returns the
-    output pair.  Launches two kernels per block on the current stream
-    without synchronizing."""
+def _check_params(a: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                  vec: torch.Tensor, dwk: torch.Tensor, channels: int) -> None:
+    """The parameters as ``pack`` lays them out for the pair ``a``: on its
+    device, ``w1`` and ``w2`` (n, Np, Kp) in its type, ``vec`` (n, 6, Np)
+    and ``dwk`` (n, 25, Np) float32, all contiguous, with Np and Kp
+    ``pack``'s for ``channels``.  The kernel reads them by pointer, so any
+    other layout raises here."""
+    c = channels
+    if c <= 0 or c % 2:
+        raise ValueError(f'pair_chain: chain width {c} must be even and '
+                         f'positive')
+    kp, np_ = _round_up(c + 2 * (c // 2 % 2), K_STEP), _round_up(c, N_STEP)
+    n = w1.shape[0] if w1.dim() == 3 else 0
+    want = {'w1': (w1, a.dtype, (n, np_, kp)),
+            'w2': (w2, a.dtype, (n, np_, kp)),
+            'vec': (vec, torch.float32, (n, 6, np_)),
+            'dwk': (dwk, torch.float32, (n, 25, np_))}
+    for name, (t, dtype, shape) in want.items():
+        if (n == 0 or t.device != a.device or t.dtype != dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f'pair_chain: {name} {tuple(t.shape)} {t.dtype} on '
+                f'{t.device} (contiguous: {t.is_contiguous()}) is not '
+                f'packed for a chain of width {c} on a {a.dtype} pair on '
+                f'{a.device}: want {shape} {dtype}, contiguous, n > 0')
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, w1: torch.Tensor,
+            w2: torch.Tensor, vec: torch.Tensor, dwk: torch.Tensor,
+            channels: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The operator's CUDA implementation: the chain on (B, H, W, C)
+    bfloat16 or float32 CUDA tensors, computed in their type with float32
+    accumulation, with the parameters ``pack`` laid out for that type and
+    device.  Returns the output pair.  Launches two kernels per block on
+    the current stream without synchronizing."""
     global KERNEL_LAUNCHES, CUDA_LAUNCHES
     _check_operand('a', a, None)
     _check_operand('b', b, a)
     bsz, h, w, c = a.shape
-    if chain.dtype != a.dtype or chain.w1.device != a.device:
-        raise ValueError(f'pair_chain: parameters packed for {chain.dtype} on '
-                         f'{chain.w1.device}, pair is {a.dtype} on {a.device}')
-    if c != chain.channels or c % 2:
+    if c != channels:
         raise ValueError(f'pair_chain: pair width {c}, chain width '
-                         f'{chain.channels} (must be equal and even)')
-    n = len(chain.blocks)
-    kp = chain.w1.shape[2]
+                         f'{channels} (must be equal)')
+    _check_params(a, w1, w2, vec, dwk, channels)
+    n = w1.shape[0]
+    kp = w1.shape[2]
     if bsz * h * w * kp >= 2 ** 31 or bsz * h * w == 0:
         raise ValueError(f'pair_chain: shape {tuple(a.shape)} out of range')
     with torch.cuda.device(a.device):
@@ -495,9 +534,8 @@ def pair_chain(a: torch.Tensor, b: torch.Tensor, chain: PackedChain):
         rc = getattr(_lib(), _ENTRY[a.dtype])(
             a.data_ptr(), b.data_ptr(), out_a.data_ptr(), out_b.data_ptr(),
             tmp_a.data_ptr(), tmp_b.data_ptr(), t.data_ptr(),
-            chain.w1.data_ptr(), chain.w2.data_ptr(), chain.vec.data_ptr(),
-            chain.dwk.data_ptr(), n, bsz, h, w, c,
-            ctypes.addressof(plan_arr), stream)
+            w1.data_ptr(), w2.data_ptr(), vec.data_ptr(), dwk.data_ptr(),
+            n, bsz, h, w, c, ctypes.addressof(plan_arr), stream)
     if rc != 0:
         raise RuntimeError(f'pair_chain: kernel launch failed with code '
                            f'{rc} (plan {plan})')
@@ -506,9 +544,73 @@ def pair_chain(a: torch.Tensor, b: torch.Tensor, chain: PackedChain):
     return out_a, out_b
 
 
+def unpack(w1: torch.Tensor, w2: torch.Tensor, vec: torch.Tensor,
+           dwk: torch.Tensor, channels: int) -> List[BlockParams]:
+    """``pack``'s layout read back: the chain's float32 ``BlockParams``
+    (the products' weights as rounded to the storage type)."""
+    c = channels
+    q = c // 2
+    o = q % 2
+    return [BlockParams(
+        w1a=w1[i, :c, o:o + q].t().float().contiguous(),
+        w1b=w1[i, :c, q + 2 * o:c + 2 * o].t().float().contiguous(),
+        s1=vec[i, 0, :c], o1=vec[i, 1, :c],
+        dwk=dwk[i, :, :c].reshape(5, 5, c),
+        sdw=vec[i, 2, :c], odw=vec[i, 3, :c],
+        w2=w2[i, :c, :c].t().float().contiguous(),
+        s2=vec[i, 4, :c], o2=vec[i, 5, :c]) for i in range(w1.shape[0])]
+
+
+def packed_plain(a: torch.Tensor, b: torch.Tensor, w1: torch.Tensor,
+                 w2: torch.Tensor, vec: torch.Tensor, dwk: torch.Tensor,
+                 channels: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The operator's CPU implementation: ``pair_chain_plain`` on the
+    packed tensors, in their storage type (``w1.dtype``)."""
+    if (b.dtype != a.dtype or b.device != a.device or a.dim() != 4
+            or a.shape[-1] != channels or b.shape != a.shape):
+        raise ValueError(f'pair_chain: pair {tuple(a.shape)} {a.dtype} and '
+                         f'{tuple(b.shape)} {b.dtype}, chain of width '
+                         f'{channels}')
+    _check_params(a, w1, w2, vec, dwk, channels)
+    return pair_chain_plain(a, b, unpack(w1, w2, vec, dwk, channels),
+                            w1.dtype)
+
+
+pair_chain_op = torch.library.custom_op(
+    'openpifpaf_tpu_torch::pair_chain', _launch, mutates_args=(),
+    device_types='cuda',
+    schema='(Tensor a, Tensor b, Tensor w1, Tensor w2, Tensor vec, '
+           'Tensor dwk, int channels) -> (Tensor, Tensor)')
+pair_chain_op.register_kernel('cpu', packed_plain)
+
+
+@pair_chain_op.register_fake
+def _fake(a, b, w1, w2, vec, dwk, channels):
+    return torch.empty_like(a), torch.empty_like(b)
+
+
+@register_flop_formula(torch.ops.openpifpaf_tpu_torch.pair_chain)
+def chain_flops(a_shape, b_shape, w1_shape, w2_shape, vec_shape, dwk_shape,
+                channels, *args, out_shape=None, **kwargs) -> int:
+    """Per pixel and block two C x C products and the 25 taps of the 5x5
+    depthwise conv, two operations per multiply-add (as
+    ``torch.utils.flop_counter`` counts a convolution)."""
+    bsz, h, w, c = a_shape
+    return 2 * w1_shape[0] * bsz * h * w * (2 * c * c + 25 * c)
+
+
+def pair_chain(a: torch.Tensor, b: torch.Tensor, chain: PackedChain):
+    """The kernel's wrapper: the chain on CUDA tensors through the
+    operator (``_launch``), with the parameters ``pack`` laid out for
+    their type and device.  A CPU tensor raises."""
+    _check_operand('a', a, None)
+    return pair_chain_op(a, b, chain.w1, chain.w2, chain.vec, chain.dwk,
+                         chain.channels)
+
+
 def apply_chain(a: torch.Tensor, b: torch.Tensor, chain: PackedChain):
-    """The chain on the pair's device: the plain version for CPU tensors,
-    the kernel for CUDA tensors (no other switch, no fallback)."""
-    if a.device.type == 'cpu':
-        return pair_chain_plain(a, b, chain.blocks, chain.dtype)
-    return pair_chain(a, b, chain)
+    """The chain through the operator on the pair's device: the plain
+    version for CPU tensors, the kernel for CUDA tensors (no other switch,
+    no fallback)."""
+    return pair_chain_op(a, b, chain.w1, chain.w2, chain.vec, chain.dwk,
+                         chain.channels)

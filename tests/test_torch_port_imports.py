@@ -86,7 +86,9 @@ def test_port_sources_found():
                  'plugins/posetrack/cocokpst.py',
                  'plugins/posetrack/posetrack2018.py',
                  'models/converter.py', 'models/model_migration.py',
-                 'migrate.py'):
+                 'migrate.py', 'export_program.py',
+                 'export_onnx.py', 'export_coreml.py', 'onnx_native.py',
+                 'count_ops.py'):
         assert os.path.join(REPO, 'openpifpaf_tpu_torch', name) in files
     assert len(files) > 20
 
@@ -163,6 +165,11 @@ def test_import_loads_no_jax_and_builds_nothing():
         'openpifpaf_tpu_torch.models.converter, '
         'openpifpaf_tpu_torch.models.model_migration, '
         'openpifpaf_tpu_torch.migrate, '
+        'openpifpaf_tpu_torch.export_program, '
+        'openpifpaf_tpu_torch.export_onnx, '
+        'openpifpaf_tpu_torch.export_coreml, '
+        'openpifpaf_tpu_torch.onnx_native, '
+        'openpifpaf_tpu_torch.count_ops, '
         'openpifpaf_tpu_torch.kernels as k\n'
         'import openpifpaf_tpu_torch.plugins as p; p.register()\n'
         f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]\n'
