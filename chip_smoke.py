@@ -43,18 +43,36 @@ Phases, in order; any failure raises and exits non-zero:
    K2's two (phases 3 and 6), and one served batch under
    ``torch.profiler``, the device's busy share and the ops that take its
    time;
-8. train: the port's training path (``openpifpaf_tpu_torch.training``,
-   the canonical graph under autograd; it runs no hand-written kernel).
-   A narrow model's loss components, gradients, one SGD step and its
-   BatchNorm statistics on the card in f32 (TF32 off) against the CPU;
-   ShuffleNetV2K-16 at full width with the COCO CIF/CAF heads, toykp at
-   385 px, batch 8, bf16, 10 SGD-nesterov steps on one fixed batch (finite
-   losses, the last below the first; ms per step by CUDA events, images per
-   second, peak memory, the host's time to render and encode the batch);
-   ``python -m openpifpaf_tpu_torch.train`` for one epoch and ``--resume``
-   for a second (log lines, checkpoint files); the written checkpoint
-   served by ``Predictor`` through K2 and K1 (their counts set to 0 before,
-   read after);
+8. train: the port's training path (``openpifpaf_tpu_torch.training``:
+   the canonical graph by default, or with ``fused_train`` the
+   folded-routing training plan, under autograd; it runs no hand-written
+   kernel).  (a) A narrow model's loss components, gradients, one SGD step
+   and its BatchNorm statistics on the card in f32 (TF32 off) against the
+   CPU, through the canonical graph, the pair plan and, at a width only it
+   takes, the r3 plan; on the card the plan against the canonical graph
+   (fields, statistics, gradients by relative L2, JAX's ``TestTrainPlan``
+   bounds); (b) ShuffleNetV2K-16 at full width with the COCO CIF/CAF
+   heads, toykp at 385 px, batch 8, bf16, 10 SGD-nesterov steps on one
+   fixed batch through the plan, the canonical graph and the canonical
+   graph under ``--remat`` (finite losses, the last below the first; ms per
+   step by CUDA events, images per second, peak memory, the host's time to
+   render and encode the batch); (c) 3 default steps under
+   ``profiler.Profiler`` (torch.profiler with CUDA activities): the
+   device's busy share, the ops that take its time, the host's ms to
+   enqueue a step; (d) the host's toykp batch split into ground truth,
+   render, transforms, the CIF and CAF painters and the collate, with the
+   native painters (``encoder.native.PAINTS`` counted) and with
+   ``use_native=False`` (the targets held to each other); (e) one SGD step
+   card vs CPU (f32, TF32 off, 129 px, batch 2) for the smallest member of
+   each backbone family, then ``resnet50`` and ``swin_t`` trained at full
+   width (bf16, 385 px, batch 8, 5 steps, falling losses, ms per step);
+   (f) ``--auto-tune-mtl`` for 5 steps (finite losses, ``log_sigmas``
+   moved); ``python -m openpifpaf_tpu_torch.train`` for one epoch and
+   ``--resume`` for a second (log lines, checkpoint files), beside it (g)
+   the train CLI with ``--remat --orbax`` (the ``.pt`` train state loads
+   and equals ``.train.npz``); the written checkpoint served by
+   ``Predictor`` through K2 and K1 (their counts set to 0 before, read
+   after); each sub-step's seconds;
 9. eval: (a) ``python -m openpifpaf_tpu_torch.eval`` on the card scores
    the train phase's checkpoint at 385 px (the stats json's keys); (b) the
    golden fields replayed through the card's decode and the port's COCO
@@ -148,7 +166,9 @@ Phases, in order; any failure raises and exits non-zero:
    measured) on ``--dataset cocokp``, sn2k16, bf16, batch 8, 385 px, one
    epoch with the full augmentation chain and both rotations and blur on
    (ms per step by CUDA events, the host's ms per batch split by
-   transform class, every loss finite); (c) the eval CLI on its
+   transform class, every loss finite), then the same run's train loop at
+   ``--loader-workers`` 0 and 8 at batches of 4, its wait per batch (the
+   train phase's (d)); (c) the eval CLI on its
    checkpoint at 641 px (the stats json's keys), then a bias-shifted
    sn2k16 with cocokp's heads through ``Evaluator`` on the cocokp eval
    loader (K1 once and K2 three times per batch, counts set to 0 before
@@ -217,8 +237,10 @@ It imports only the port, torch and numpy.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import logging
 import os
@@ -1118,6 +1140,54 @@ TRAIN_BATCH = 8
 TRAIN_STEPS = 10
 # the narrow ShuffleNetV2K of the CPU tests (test_torch_port_models.NARROW)
 NARROW = ((1, 2, 1), (8, 16, 32, 64, 64))
+# a narrow width that only the r3 training plan takes (half-width 7)
+NARROW_R3 = ((1, 2, 1), (8, 14, 28, 52, 64))
+# the training plan against the canonical graph, JAX's TestTrainPlan
+# bounds (tests/test_fused_shufflenet.py:100-178): fields atol 2e-4 rtol
+# 1e-4, statistics 1e-5, gradients by relative L2 per leaf and overall
+PLAN_FIELD_TOL = (2e-4, 1e-4)
+PLAN_STATS_TOL = 1e-5
+PLAN_GRAD_TOL = (5e-2, 2e-2)
+# the trace of the train step: steps run under the profiler
+TRACE_STEPS = 3
+# one family member per backbone family of the registry, the smallest
+# (ShuffleNetV2K's own step is held at narrow widths above)
+BACKBONE_FAMILIES = ('resnet50', 'mobilenetv2', 'mobilenetv3large',
+                     'squeezenet', 'effnetv2s', 'swin_t', 'xcit_small_12',
+                     'botnet', 'hrformer_s', 'shufflenetv2x1')
+# each family's step card vs CPU by relative L2: (gradients overall,
+# worst leaf, step's change overall, worst leaf), set from the family's
+# own readings on an H100 (80GB HBM3, 700 W; two runs agreed to 3 digits)
+# with room of 2.5-6x.  f32 BatchNorm backward cancels heavily in the deep
+# batchnorm backbones at batch 2 -- resnet50's f32 gradient lies 1.5e-2
+# (worst leaf 2.1e-2) from its float64 gradient on the CPU and 2.0e-2
+# (2.9e-2) on the card, so two f32 gradients may lie ~3.5e-2 apart; the
+# others read 1e-5 to 1e-2.  The change's worst leaf is the change's
+# rounding where a leaf moves by little more than an ulp.
+BACKBONE_STEP_TOL = {
+    # readings: gradients 1.76e-2 (2.52e-2), change 1.76e-2 (2.52e-2)
+    'resnet50': (5e-2, 1e-1, 5e-2, 1e-1),
+    # 1.46e-2 (2.17e-2), 1.46e-2 (2.17e-2)
+    'mobilenetv2': (4e-2, 6e-2, 4e-2, 6e-2),
+    # 1.38e-5 (1.98e-5), 2.23e-5 (3.55e-4)
+    'mobilenetv3large': (6e-5, 1e-4, 1e-4, 2e-3),
+    # 4.25e-5 (1.00e-4), 4.44e-5 (7.65e-4)
+    'squeezenet': (2e-4, 5e-4, 2e-4, 4e-3),
+    # 5.49e-5 (8.36e-5), 6.66e-5 (1.83e-3)
+    'effnetv2s': (2e-4, 4e-4, 3e-4, 6e-3),
+    # 1.34e-5 (1.37e-5), 2.88e-5 (4.88e-4)
+    'swin_t': (6e-5, 6e-5, 1e-4, 2e-3),
+    # 5.71e-6 (7.84e-6), 1.77e-5 (1.07e-3)
+    'xcit_small_12': (3e-5, 4e-5, 1e-4, 5e-3),
+    # 1.03e-2 (1.68e-2), 1.03e-2 (1.68e-2)
+    'botnet': (3e-2, 5e-2, 3e-2, 5e-2),
+    # 2.62e-3 (1.41e-2), 2.62e-3 (1.41e-2)
+    'hrformer_s': (1e-2, 4e-2, 1e-2, 4e-2),
+    # 3.90e-3 (8.93e-3), 3.90e-3 (8.93e-3)
+    'shufflenetv2x1': (1.5e-2, 3e-2, 1.5e-2, 3e-2),
+}
+BACKBONE_TRAIN_STEPS = 5
+AUTO_TUNE_STEPS = 5
 
 
 def toykp_batch(port, metas, size, n, device):
@@ -1145,10 +1215,13 @@ def trainer_for(port, model, **settings):
         os.devnull)
 
 
-def check_train_card_vs_cpu(port) -> None:
+def check_train_card_vs_cpu(port, widths=NARROW, plan: bool = True) -> None:
     """One train step of the narrow model (seeded weights, toykp batch of
     4 at 129 px) on the card in f32 with TF32 off and on the CPU, SGD
-    nesterov with clips and weight decay.  Limits: the loss components
+    nesterov with clips and weight decay, through the training plan with
+    ``plan`` (the pair plan at ``NARROW``, the r3 plan at ``NARROW_R3``),
+    else through the canonical graph (the default).  Limits: the
+    loss components
     within 1e-4 relative; per parameter the gradient within 1e-3 of its
     largest value (at least 1e-2 of the model's largest: BatchNorm biases
     before a 1x1 conv and another BatchNorm have gradient 0 in exact
@@ -1158,21 +1231,33 @@ def check_train_card_vs_cpu(port) -> None:
     sum convolutions in other orders."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's default algorithms (the serve phase turned the autotuner on):
+    # the same sums from run to run
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
     metas = port.toykp.coco_head_metas()
     for meta in metas:
         meta.base_stride = 16
     shell = port.models.Shell(
-        port.models.ShuffleNetV2K(*NARROW),
-        [port.models.CompositeField4(m, NARROW[1][-1]) for m in metas])
+        port.models.ShuffleNetV2K(*widths),
+        [port.models.CompositeField4(m, widths[1][-1]) for m in metas])
     port.models.init_weights(shell, torch.Generator().manual_seed(0))
+    forward = ('the canonical graph' if not plan else
+               'the pair training plan'
+               if port.fused_shufflenet.supports_pair_train(shell.basenet)
+               else 'the r3 training plan')
     before = {k: v.clone() for k, v in shell.state_dict().items()}
     images, targets, _ = toykp_batch(port, metas, 129, 4, 'cpu')
     runs = {}
     for device in ('cpu', 'cuda'):
         model = port.models.Model(copy.deepcopy(shell), metas, base_stride=16,
                                   device=torch.device(device), bf16=False)
+        model.fused_train = plan
         trainer = trainer_for(port, model, lr=0.05, clip_grad_norm=5.0,
                               clip_grad_value=1.0, weight_decay=1e-4)
+        if trainer.uses_train_plan() != plan:
+            raise AssertionError(f'the narrow model is not trained through '
+                                 f'{forward}')
         trainer.setup(steps_per_epoch=1)
         _, comps = trainer.train_step(images, targets)
         runs[device] = (comps.cpu(),
@@ -1180,6 +1265,7 @@ def check_train_card_vs_cpu(port) -> None:
                          model.module.named_parameters()},
                         {k: v.cpu() for k, v in
                          model.module.state_dict().items()})
+    torch.backends.cudnn.benchmark = benchmark
     (comps, grads, state), (comps_c, grads_c, state_c) = \
         runs['cpu'], runs['cuda']
     loss_err = float(((comps_c - comps).abs()
@@ -1202,8 +1288,7 @@ def check_train_card_vs_cpu(port) -> None:
                    + 2 * eps * float(before[name].abs().max()))
         step_ratio = max(step_ratio,
                          float((delta_c - delta).abs().max()) / allowed)
-    print(f'train card vs CPU (narrow model, 4 images at 129 px, f32, TF32 '
-          f'off): losses {[round(float(c), 5) for c in comps]}, max rel '
+    print(f'train card vs CPU (narrow model {widths[1]}, {forward}, 4 images at 129 px, f32, TF32 off): losses {[round(float(c), 5) for c in comps]}, max rel '
           f'|Δ| {loss_err:.3e} (limit 1e-4); gradients max|Δ|/scale '
           f'{grad_err:.3e} (limit 1e-3); SGD step change max|Δ| / (1e-3 of '
           f'the CPU change + 2 ulps) {step_ratio:.3e} (limit 1); BN running '
@@ -1213,26 +1298,32 @@ def check_train_card_vs_cpu(port) -> None:
         raise AssertionError('training on the card differs from the CPU')
 
 
-def train_full_width(port, card) -> None:
-    """ShuffleNetV2K-16 at full width with the COCO CIF/CAF heads, bf16,
-    ``TRAIN_STEPS`` SGD-nesterov steps on one fixed toykp batch of
-    ``TRAIN_BATCH`` at ``TRAIN_EDGE`` px: finite losses, the last below the
-    first; ms per step by CUDA events."""
-    torch.backends.cudnn.benchmark = True
+def sn2k16_trainer(port, mode: str = 'canonical', **settings):
+    """Full-width sn2k16 with cocokp's heads, bf16, on the card, and its
+    trainer (SGD nesterov) through the canonical graph (``canonical``: the
+    default, ``fused_train`` off), the training plan (``plan``) or the
+    canonical graph under ``--remat`` (``remat``)."""
     metas = port.toykp.coco_head_metas()
     model = port.models.factory('shufflenetv2k16', metas, device='cuda',
                                 seed=0, bf16=True)
-    images, targets, host_s = toykp_batch(port, metas, TRAIN_EDGE,
-                                          TRAIN_BATCH, 'cuda')
+    model.fused_train = mode == 'plan'
     trainer = trainer_for(port, model, lr=1e-3, momentum=0.95, nesterov=True,
                           lr_warm_up_epochs=0.3, clip_grad_value=10.0,
-                          weight_decay=1e-5)
+                          weight_decay=1e-5, **settings)
     trainer.ema_decay = 1.0 - 0.01
-    trainer.setup(steps_per_epoch=TRAIN_STEPS)
+    trainer.remat = mode == 'remat'
+    if trainer.uses_train_plan() != (mode == 'plan'):
+        raise AssertionError(f'{mode}: the trainer chose the wrong forward')
+    return model, metas, trainer
+
+
+def timed_steps(trainer, images, targets, steps: int):
+    """``steps`` train steps, each timed by CUDA events; the losses, the
+    ms per step and the peak device memory in GiB."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1241,10 +1332,27 @@ def train_full_width(port, card) -> None:
         end.synchronize()
         times.append(start.elapsed_time(end))
         losses.append(float(total))
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    return losses, times, torch.cuda.max_memory_allocated() / 2**30
+
+
+def train_full_width(port, card, mode: str = 'plan') -> dict:
+    """ShuffleNetV2K-16 at full width with the COCO CIF/CAF heads, bf16,
+    ``TRAIN_STEPS`` SGD-nesterov steps on one fixed toykp batch of
+    ``TRAIN_BATCH`` at ``TRAIN_EDGE`` px through ``mode``
+    (``sn2k16_trainer``): finite losses, the last below the first; ms per
+    step by CUDA events, peak memory."""
+    torch.backends.cudnn.benchmark = True
+    model, metas, trainer = sn2k16_trainer(port, mode)
+    images, targets, host_s = toykp_batch(port, metas, TRAIN_EDGE,
+                                          TRAIN_BATCH, 'cuda')
+    trainer.setup(steps_per_epoch=TRAIN_STEPS)
+    losses, times, peak = timed_steps(trainer, images, targets, TRAIN_STEPS)
     med = float(np.median(times))
-    print(f'train sn2k16 full width, CIF 17x5 + CAF 19x9, toykp {TRAIN_EDGE} '
-          f'px, batch {TRAIN_BATCH}, bf16, SGD nesterov: losses '
+    forward = {'plan': 'the pair training plan',
+               'canonical': 'the canonical graph',
+               'remat': 'the canonical graph under --remat'}[mode]
+    print(f'train sn2k16 full width ({forward}), CIF 17x5 + CAF 19x9, toykp '
+          f'{TRAIN_EDGE} px, batch {TRAIN_BATCH}, bf16, SGD nesterov: losses '
           f'{[round(l, 4) for l in losses]}; ms per step median {med:.3f} '
           f'[min {min(times):.3f}, max {max(times):.3f}] (first {times[0]:.3f}'
           f'), {1e3 * TRAIN_BATCH / med:.1f} images/s; peak device memory '
@@ -1255,6 +1363,357 @@ def train_full_width(port, card) -> None:
     if not losses[-1] < losses[0]:
         raise AssertionError(f'training loss did not fall: {losses}')
     del trainer, model
+    torch.cuda.empty_cache()
+    return dict(median=med, min=min(times), max=max(times), peak=peak,
+                losses=losses)
+
+
+def relative_l2(want: dict, got: dict, floor: float = 1e-8):
+    """The relative L2 distance of ``got`` from ``want`` over all their
+    tensors, and the worst over the tensors holding more than ``floor`` of
+    ``want``'s squared norm."""
+    den = sum(float(w.double().pow(2).sum()) for w in want.values())
+    num = worst = 0.0
+    for name, w in want.items():
+        d2 = float((got[name].double() - w.double()).pow(2).sum())
+        n2 = float(w.double().pow(2).sum())
+        num += d2
+        if n2 > floor * den:
+            worst = max(worst, (d2 / n2) ** 0.5)
+    return (num / den) ** 0.5, worst
+
+
+def check_plan_on_card(port, widths) -> None:
+    """On the card, f32 with TF32 off: the training plan against the
+    canonical graph in train mode on the narrow model (toykp batch of 4 at
+    129 px): the fields, the updated running statistics and the gradients
+    of the sum of squared fields, with ``PLAN_*_TOL``."""
+    metas = port.toykp.coco_head_metas()
+    for meta in metas:
+        meta.base_stride = 16
+    shell = port.models.Shell(
+        port.models.ShuffleNetV2K(*widths),
+        [port.models.CompositeField4(m, widths[1][-1]) for m in metas])
+    port.models.init_weights(shell, torch.Generator().manual_seed(1))
+    images, _, _ = toykp_batch(port, metas, 129, 4, 'cuda')
+    runs = []
+    for plan in (False, True):
+        module = copy.deepcopy(shell).cuda().train()
+        fields = (port.fused_shufflenet.shell_apply_train(module, images)
+                  if plan else module(images))
+        sum(f.float().pow(2).sum() for f in fields).backward()
+        runs.append(([f.detach() for f in fields],
+                     {n: p.grad for n, p in module.named_parameters()},
+                     {k: v for k, v in module.state_dict().items()
+                      if k.endswith(('running_mean', 'running_var'))}))
+    (fields, grads, stats), (p_fields, p_grads, p_stats) = runs
+    atol, rtol = PLAN_FIELD_TOL
+    field_ratio = max(float(((p - f).abs() / (atol + rtol * f.abs())).max())
+                      for f, p in zip(fields, p_fields))
+    stats_err = max(float((p_stats[k] - v).abs().max()
+                          / (1 + v.abs()).max()) for k, v in stats.items())
+    total, worst = relative_l2(grads, p_grads)
+    plan = ('pair' if port.fused_shufflenet.supports_pair_train(
+        shell.basenet) else 'r3')
+    print(f'train plan vs canonical graph on the card ({plan} plan, narrow '
+          f'{widths[1]}, f32, TF32 off): fields max |Δ| / (atol + rtol '
+          f'|x|) {field_ratio:.3e} (limit 1), running statistics '
+          f'{stats_err:.3e} (limit {PLAN_STATS_TOL}), gradients rel L2 '
+          f'{total:.3e} (limit {PLAN_GRAD_TOL[1]}), worst leaf {worst:.3e} '
+          f'(limit {PLAN_GRAD_TOL[0]})', flush=True)
+    if not (field_ratio <= 1.0 and stats_err <= PLAN_STATS_TOL
+            and total <= PLAN_GRAD_TOL[1] and worst <= PLAN_GRAD_TOL[0]):
+        raise AssertionError('the training plan differs from the canonical '
+                             'graph on the card')
+
+
+def trace_train_step(port, card, tmp: str) -> dict:
+    """``TRACE_STEPS`` full-width default steps (the canonical graph) under
+    ``profiler.Profiler``
+    (torch.profiler with CUDA activities and cProfile): the window's wall
+    time, the device's busy share (the sum of its kernels' times; one
+    stream), the ops that take most of it, and, from as many steps run
+    without the profiler, the host's ms per step to enqueue a step (no
+    synchronize) and the idle device time per step."""
+    from openpifpaf_tpu_torch.profiler import Profiler, TraceAnnotation
+
+    model, metas, trainer = sn2k16_trainer(port)
+    images, targets, _ = toykp_batch(port, metas, TRAIN_EDGE, TRAIN_BATCH,
+                                     'cuda')
+    trainer.setup(steps_per_epoch=3 * TRACE_STEPS)
+    for _ in range(3):
+        trainer.train_step(images, targets)
+    torch.cuda.synchronize()
+    host_ms, refold_ms = [], []
+    refold = model.refold
+
+    def timed_refold():
+        start = time.perf_counter()
+        refold()
+        refold_ms.append((time.perf_counter() - start) * 1e3)
+
+    model.refold = timed_refold
+    start_all = time.perf_counter()
+    for _ in range(TRACE_STEPS):
+        start = time.perf_counter()
+        trainer.train_step(images, targets)
+        host_ms.append((time.perf_counter() - start) * 1e3)
+    torch.cuda.synchronize()
+    wall_plain = (time.perf_counter() - start_all) * 1e3 / TRACE_STEPS
+    model.refold = refold
+
+    profiler = Profiler(out_name=os.path.join(tmp, 'train_step.prof'),
+                        trace_dir=os.path.join(tmp, 'train_trace'))
+    with contextlib.redirect_stdout(io.StringIO()):   # cProfile's table
+        with profiler():
+            start = time.perf_counter()
+            for i in range(TRACE_STEPS):
+                with TraceAnnotation(f'train step {i}'):
+                    trainer.train_step(images, targets)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - start) * 1e3
+
+    def device_us(event):
+        return getattr(event, 'self_device_time_total',
+                       getattr(event, 'self_cuda_time_total', 0.0))
+
+    # the device's events, less the annotations' spans over them
+    annotations = {f'train step {i}' for i in range(TRACE_STEPS)}
+    kernels = [e for e in profiler.trace.key_averages()
+               if str(e.device_type).endswith('CUDA')
+               and e.key not in annotations]
+    busy_ms = sum(device_us(e) for e in kernels) / 1e3
+    if busy_ms <= 0:
+        raise AssertionError('the trace holds no device time')
+    busy = busy_ms / wall_ms
+    print(f'train step trace (sn2k16, the canonical graph, bf16, batch '
+          f'{TRAIN_BATCH} at {TRAIN_EDGE} px, {TRACE_STEPS} steps under '
+          f'torch.profiler): wall {wall_ms / TRACE_STEPS:.3f} ms per step, '
+          f'device busy {busy_ms / TRACE_STEPS:.3f} ms per step '
+          f'({100 * busy:.1f}% of the traced window, idle '
+          f'{100 - 100 * busy:.1f}%; {100 * busy_ms / TRACE_STEPS / wall_plain:.1f}% '
+          f'of an untraced step\'s {wall_plain:.3f} ms), '
+          f'{sum(e.count for e in kernels) // TRACE_STEPS} kernel launches '
+          f'per step; trace {os.path.getsize(profiler.trace_file)} bytes '
+          f'({card})', flush=True)
+    for e in sorted(kernels, key=device_us, reverse=True)[:12]:
+        print(f'  {device_us(e) / 1e3 / TRACE_STEPS:9.3f} ms/step '
+              f'{e.count // TRACE_STEPS:5d}x  {e.key[:90]}', flush=True)
+    host = float(np.median(host_ms))
+    print(f'train step host (no profiler, {TRACE_STEPS} steps): the host '
+          f'enqueues a step in {host:.3f} ms median [min {min(host_ms):.3f}, '
+          f'max {max(host_ms):.3f}] (Model.refold() {np.median(refold_ms):.4f}'
+          f' ms of it), the step takes {wall_plain:.3f} ms of wall time; '
+          f'host time outside the device work {max(0.0, wall_plain - busy_ms / TRACE_STEPS):.3f} '
+          f'ms per step (wall less device busy)', flush=True)
+    del trainer, model
+    torch.cuda.empty_cache()
+    return dict(busy=busy, wall_ms=wall_ms / TRACE_STEPS,
+                busy_ms=busy_ms / TRACE_STEPS, host_ms=host)
+
+
+def host_batch_split(port, card) -> dict:
+    """The host's toykp batch (8 images at 385 px, as ``toykp_batch``)
+    split into ground truth, render, transforms (by class), the CIF and
+    CAF painters and the collate (``HostTimes``), with the native painters
+    and with ``use_native=False``; ``encoder.native.PAINTS`` must count
+    two paints per image of the native batch and none of the other, and
+    the two batches' targets agree within the JAX package's bounds (at
+    most 0.1% of the elements beyond 1e-4; masks within 0.1%)."""
+    from openpifpaf_tpu_torch.encoder import native
+
+    metas = port.toykp.coco_head_metas()
+    for meta in metas:
+        meta.base_stride = 16
+    split, batches = {}, {}
+    for use_native in (True, False):
+        times = HostTimes()
+        dm = port.toykp.ToyKp()
+        dm.head_metas, dm.augmentation, dm.image_size = \
+            metas, False, TRAIN_EDGE
+        preprocess = dm.preprocess(np.random.default_rng(0))
+        for step in preprocess.transforms:
+            if hasattr(step, 'encoders'):
+                for enc in step.encoders:
+                    enc.use_native = use_native
+                step.encoders = [times.timed(type(e).__name__, e)
+                                 for e in step.encoders]
+        ds = port.toykp.ToyKpDataset(TRAIN_BATCH, TRAIN_EDGE,
+                                     times.wrap(preprocess), seed=0)
+        ds.ground_truth = times.timed('ground_truth', ds.ground_truth)
+        ds.render = times.timed('render', ds.render)
+        collate = times.timed('collate',
+                              port.datasets.collate_images_targets_meta)
+        paints = native.PAINTS
+        start = time.perf_counter()
+        batches[use_native] = collate([ds[i] for i in range(TRAIN_BATCH)])
+        total = (time.perf_counter() - start) * 1e3
+        paints = native.PAINTS - paints
+        label = 'native' if use_native else 'numpy'
+        split[label] = {name: round(sec * 1e3, 2)
+                        for name, sec in sorted(times.seconds.items(),
+                                                key=lambda kv: -kv[1])}
+        print(f'host batch split ({label} painters; toykp, {TRAIN_BATCH} '
+              f'images at {TRAIN_EDGE} px, ms per batch): {split[label]}; '
+              f'total {total:.1f} ms; native paints {paints}', flush=True)
+        if paints != (2 * TRAIN_BATCH if use_native else 0):
+            raise AssertionError(f'{label}: {paints} native paints')
+    for want, got in zip(batches[False][1], batches[True][1]):
+        for key, w in want.items():
+            w, g = w.numpy(), got[key].numpy()
+            if w.dtype == bool:
+                bad = float(np.mean(w != g))
+            else:
+                bad = float(np.mean(~np.isclose(g, w, atol=1e-4, rtol=0)))
+            if bad > 1e-3:
+                raise AssertionError(f'native targets differ: {key} {bad}')
+    return split
+
+
+def backbone_step_card_vs_cpu(port, name: str) -> dict:
+    """One SGD step of ``name`` with cocokp's heads (seeded weights, f32,
+    TF32 off, a toykp batch of 2 at 129 px) on the card and on the CPU:
+    the loss components within 1e-4 relative, the gradients and the
+    parameters' change by relative L2 (overall, and per leaf holding more
+    than 1e-8 of the squared norm) within ``BACKBONE_STEP_TOL[name]``.  Weight decay is on: without it torch's multi-tensor
+    SGD (the card's) adds the nesterov momentum into ``p.grad`` in place,
+    and the gradients read after the step would not be the step's."""
+    metas = port.toykp.coco_head_metas()
+    model = port.models.factory(name, metas, device='cpu', seed=0,
+                                bf16=False)
+    shell = model.module
+    images, targets, _ = toykp_batch(port, metas, 129, 2, 'cpu')
+    runs = {}
+    for device in ('cpu', 'cuda'):
+        m = port.models.Model(copy.deepcopy(shell), metas,
+                              base_stride=model.base_stride,
+                              basenet_name=name, device=torch.device(device),
+                              bf16=False)
+        before = {n: p.detach().clone() for n, p in
+                  m.module.named_parameters()}
+        # no warm-up: a step of 1e-3 of lr would sit below the parameters'
+        # f32 rounding
+        trainer = trainer_for(port, m, lr=0.01, clip_grad_norm=5.0,
+                              weight_decay=1e-4, lr_warm_up_factor=1.0)
+        trainer.setup(steps_per_epoch=1)
+        start = time.perf_counter()
+        _, comps = trainer.train_step(images, targets)
+        comps = comps.cpu()
+        seconds = time.perf_counter() - start
+        runs[device] = (comps, {n: p.grad.cpu() for n, p in
+                                m.module.named_parameters()},
+                        {n: (p.detach() - before[n]).cpu() for n, p in
+                         m.module.named_parameters()}, seconds,
+                        trainer.uses_train_plan())
+        del trainer, m
+    (comps, grads, deltas, cpu_s, plan), (comps_c, grads_c, deltas_c,
+                                          card_s, _) = runs['cpu'], runs['cuda']
+    loss_err = float(((comps_c - comps).abs()
+                      / comps.abs().clamp(min=1.0)).max())
+    grad_total, grad_worst = relative_l2(grads, grads_c)
+    step_total, step_worst = relative_l2(deltas, deltas_c)
+    limits = BACKBONE_STEP_TOL[name]
+    readings = (grad_total, grad_worst, step_total, step_worst)
+    ok = loss_err <= 1e-4 and all(r <= l for r, l in zip(readings, limits))
+    print(f'  {name:18s} loss max rel |Δ| {loss_err:.2e}, gradients rel L2 '
+          f'{grad_total:.2e} (worst leaf {grad_worst:.2e}), step {step_total:.2e}'
+          f' (worst {step_worst:.2e}){", the training plan" if plan else ""};'
+          f' limits {limits}; CPU step {cpu_s:.2f} s, card {card_s:.2f} s',
+          flush=True)
+    if not ok:
+        raise AssertionError(f'{name}: the train step on the card differs '
+                             'from the CPU')
+    torch.cuda.empty_cache()
+    return dict(loss=loss_err, grads=grad_total, worst=grad_worst)
+
+
+def backbone_full_width_train(port, card, name: str) -> dict:
+    """``name`` with cocokp's heads at full width, bf16,
+    ``BACKBONE_TRAIN_STEPS`` SGD-nesterov steps on a fixed toykp batch of
+    8 at 385 px: finite losses, the last below the first, ms per step."""
+    torch.backends.cudnn.benchmark = True
+    metas = port.toykp.coco_head_metas()
+    model = port.models.factory(name, metas, device='cuda', seed=0,
+                                bf16=True)
+    images, targets, _ = toykp_batch(port, metas, TRAIN_EDGE, TRAIN_BATCH,
+                                     'cuda')
+    trainer = trainer_for(port, model, lr=1e-3, momentum=0.95, nesterov=True,
+                          lr_warm_up_epochs=0.3, clip_grad_value=10.0,
+                          weight_decay=1e-5)
+    trainer.setup(steps_per_epoch=BACKBONE_TRAIN_STEPS)
+    losses, times, peak = timed_steps(trainer, images, targets,
+                                      BACKBONE_TRAIN_STEPS)
+    print(f'train {name} full width, bf16, toykp {TRAIN_EDGE} px, batch '
+          f'{TRAIN_BATCH}: losses {[round(l, 4) for l in losses]}; ms per '
+          f'step median {np.median(times):.3f} [min {min(times):.3f}, max '
+          f'{max(times):.3f}] (first {times[0]:.3f}); peak device memory '
+          f'{peak:.2f} GiB ({card})', flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f'{name}: losses {losses}')
+    del trainer, model
+    torch.cuda.empty_cache()
+    return dict(median=float(np.median(times)), peak=peak)
+
+
+def auto_tune_mtl(port, card) -> None:
+    """``--auto-tune-mtl`` on the card: sn2k16 full width, bf16, the
+    Kendall weights (``log_sigmas``) optimized with the parameters for
+    ``AUTO_TUNE_STEPS`` steps: finite losses, the weights moved."""
+    model, metas, _ = sn2k16_trainer(port)
+    opt = port.training.OptimizeFactory()
+    opt.lr, opt.momentum, opt.nesterov = 1e-3, 0.95, True
+    trainer = port.training.Trainer(
+        model, port.losses.Factory().factory(model.head_metas), opt,
+        os.devnull, auto_tune_mtl=True)
+    images, targets, _ = toykp_batch(port, metas, TRAIN_EDGE, TRAIN_BATCH,
+                                     'cuda')
+    trainer.setup(steps_per_epoch=AUTO_TUNE_STEPS)
+    before = trainer.log_sigmas.detach().clone()
+    losses, times, _ = timed_steps(trainer, images, targets,
+                                   AUTO_TUNE_STEPS)
+    moved = float((trainer.log_sigmas.detach() - before).abs().max())
+    print(f'--auto-tune-mtl (sn2k16, bf16, {AUTO_TUNE_STEPS} steps): losses '
+          f'{[round(l, 4) for l in losses]}, log_sigmas '
+          f'{[round(float(v), 5) for v in trainer.log_sigmas.detach()]} '
+          f'(max |Δ| '
+          f'{moved:.3e}); ms per step median {np.median(times):.3f} ({card})',
+          flush=True)
+    if not all(np.isfinite(losses)) or not moved > 0:
+        raise AssertionError('--auto-tune-mtl: losses or log_sigmas')
+    del trainer, model
+    torch.cuda.empty_cache()
+
+
+def start_remat_orbax_cli(out: str):
+    """``python -m openpifpaf_tpu_torch.train --remat --orbax`` for one
+    epoch of 16 toykp images at 385 px, batch 8, in the background."""
+    return start_cli('train', [
+        '--dataset=toykp', '--basenet=shufflenetv2k16',
+        f'--toykp-image-size={TRAIN_EDGE}', '--toykp-n-images=16',
+        f'--batch-size={TRAIN_BATCH}', '--epochs=1', '--remat', '--orbax',
+        '--log-interval=1', '--output', out])
+
+
+def check_remat_orbax_cli(port, started, out: str) -> None:
+    """The ``--remat --orbax`` run: its ``.pt`` train state loads, and its
+    raw parameters and statistics equal ``.train.npz``'s."""
+    seconds = wait_cli(started, 'train CLI --remat --orbax')
+    state = torch.load(out + '.orbax/epoch_001.pt', weights_only=True)
+    _, flat = port.models.checkpoint.load(out + '.train.npz')
+    raw = port.models.from_jax_variables(
+        {k: v for k, v in flat.items() if not k.startswith('ema/')})
+    equal = all(torch.equal(v, raw[n]) for part in ('params', 'batch_stats')
+                for n, v in state[part].items())
+    with open(out + '.log') as f:
+        losses = [json.loads(l)['loss'] for l in f
+                  if json.loads(l)['type'] == 'train']
+    print(f'train CLI --remat --orbax: exit 0 in {seconds:.1f} s; losses '
+          f'{losses}; train state step {state["step"]}, '
+          f'{len(state["params"])} parameters, optimizer state of '
+          f'{len(state["optimizer"]["state"])}, equal to .train.npz: '
+          f'{equal}', flush=True)
+    if not equal or state['step'] != 2 or not all(np.isfinite(losses)):
+        raise AssertionError('--remat --orbax: the train state')
 
 
 def train_cli(out: str) -> None:
@@ -1314,14 +1773,76 @@ def serve_trained(port, checkpoint: str) -> None:
                              'K1 and K2')
 
 
-def train_phase(port, card, out: str) -> None:
-    """The train phase; the CLI writes its checkpoints to ``out``.*."""
+def train_phase(port, card, out: str) -> dict:
+    """The train phase; the CLIs write their checkpoints to ``out``.*."""
     start = time.perf_counter()
-    check_train_card_vs_cpu(port)
-    train_full_width(port, card)
-    train_cli(out)
-    serve_trained(port, out + '.npz')
-    print(f'train phase: {time.perf_counter() - start:.1f} s', flush=True)
+    seconds = {}
+
+    def timed(label, fn, *args):
+        begin = time.perf_counter()
+        result = fn(*args)
+        seconds[label] = round(time.perf_counter() - begin, 1)
+        print(f'[train {label}: {seconds[label]} s]', flush=True)
+        return result
+
+    remat_cli = None
+    try:
+        # (a) card vs CPU: the canonical graph (the default) and the plan
+        # at a pair and an r3 width; then the plan against the canonical
+        # graph on the card
+        timed('card vs CPU, canonical', check_train_card_vs_cpu, port,
+              NARROW, False)
+        timed('card vs CPU, pair plan', check_train_card_vs_cpu, port)
+        timed('card vs CPU, r3 plan', check_train_card_vs_cpu, port,
+              NARROW_R3)
+        for widths in (NARROW, NARROW_R3):
+            timed(f'plan vs canonical {widths[1]}', check_plan_on_card, port,
+                  widths)
+        # (b) full width: the plan, the canonical graph, the canonical
+        # graph under --remat
+        full = {mode: timed(f'full width {mode}', train_full_width, port,
+                            card, mode)
+                for mode in ('plan', 'canonical', 'remat')}
+        print(f'train sn2k16 full width, ms per step median: plan '
+              f'{full["plan"]["median"]:.3f}, canonical '
+              f'{full["canonical"]["median"]:.3f} (plan / canonical '
+              f'{full["plan"]["median"] / full["canonical"]["median"]:.3f}),'
+              f' canonical under --remat {full["remat"]["median"]:.3f}; peak'
+              f' memory {full["plan"]["peak"]:.2f} / '
+              f'{full["canonical"]["peak"]:.2f} / {full["remat"]["peak"]:.2f}'
+              f' GiB ({card})', flush=True)
+        # (c) the trace, (d) the host's batch
+        with tempfile.TemporaryDirectory() as tmp:
+            traced = timed('trace', trace_train_step, port, card, tmp)
+        split = timed('host split', host_batch_split, port, card)
+        # (e) the backbones, (f) --auto-tune-mtl
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print('train step card vs CPU per backbone family (cocokp heads, '
+              'seeded, 2 images at 129 px, f32, TF32 off, SGD; limits: '
+              'losses 1e-4, rel L2 per family in BACKBONE_STEP_TOL: '
+              'gradients overall, worst leaf, change overall, worst leaf):',
+              flush=True)
+        families = {name: timed(f'step {name}', backbone_step_card_vs_cpu,
+                                port, name) for name in BACKBONE_FAMILIES}
+        backbones = {name: timed(f'full width {name}',
+                                 backbone_full_width_train, port, card, name)
+                     for name in ('resnet50', 'swin_t')}
+        timed('auto-tune-mtl', auto_tune_mtl, port, card)
+        # the CLIs, side by side after the measurements: train and resume,
+        # --remat --orbax; then the checkpoint served
+        remat_cli = start_remat_orbax_cli(out + '-remat')
+        timed('train CLI', train_cli, out)
+        timed('remat orbax CLI', check_remat_orbax_cli, port, remat_cli,
+              out + '-remat')
+    finally:
+        if remat_cli is not None:
+            kill_clis(remat_cli)
+    timed('serve trained', serve_trained, port, out + '.npz')
+    print(f'train phase: {time.perf_counter() - start:.1f} s; sub-steps '
+          f'{seconds}', flush=True)
+    return dict(full=full, traced=traced, split=split, families=families,
+                backbones=backbones)
 
 
 # ------------------------------------------------------------------- eval
@@ -3586,6 +4107,8 @@ def write_posetrack_tree(root: str, sequences: int = POSETRACK_SEQUENCES,
 COCOKP_TRAIN_EDGE = 385
 COCODET_TRAIN_EDGE = 513
 COCO_EVAL_EDGE = 641
+# the loader-wait runs' batch: the tree's 22 training images make 5
+LOADER_BATCH = 4
 COCOKP_AUGMENT = ('--cocokp-orientation-invariant=0.6', '--cocokp-blur=0.5')
 # the transforms that must have run in the cocokp training epoch
 COCO_MUST_RUN = ('Blur', 'RotateBy90', 'RotateUniform')
@@ -3705,6 +4228,47 @@ def coco_train(port, card: str, argv: list, label: str,
     if not os.path.exists(out + '.npz'):
         raise AssertionError(f'{label} train: no checkpoint')
     return dict(step_ms=step_ms, host_ms=host_ms, losses=losses)
+
+
+def loader_wait(port, card: str, argv: list, workers: int) -> list:
+    """``train.main(argv)`` with ``--loader-workers workers``: per batch,
+    the train loop's wait for it, in ms of host clock from the end of one
+    step (synchronized) to the start of the next, the first from the
+    epoch's start (the workers' start-up included)."""
+    from openpifpaf_tpu_torch import train as train_mod
+    from openpifpaf_tpu_torch.datasets import DataModule
+
+    trainer_cls = port.training.Trainer
+    train_step, train_epoch = trainer_cls.train_step, trainer_cls.train_epoch
+    waits, last = [], [None]
+
+    def epoch(self, *args, **kwargs):
+        last[0] = time.perf_counter()
+        return train_epoch(self, *args, **kwargs)
+
+    def step(self, images, targets):
+        waits.append((time.perf_counter() - last[0]) * 1e3)
+        out = train_step(self, images, targets)
+        torch.cuda.synchronize()
+        last[0] = time.perf_counter()
+        return out
+
+    trainer_cls.train_step, trainer_cls.train_epoch = step, epoch
+    # the CLI configures the data modules' class attributes: put back what
+    # the phase's other runs read
+    before = DataModule.loader_workers, DataModule.batch_size
+    start = time.perf_counter()
+    try:
+        train_mod.main(argv + [f'--loader-workers={workers}'])
+    finally:
+        trainer_cls.train_step, trainer_cls.train_epoch = \
+            train_step, train_epoch
+        DataModule.loader_workers, DataModule.batch_size = before
+    print(f'cocokp train loop, --loader-workers {workers}: wait per batch '
+          f'{[round(w, 1) for w in waits]} ms (the first with the loader\'s '
+          f'start); run {time.perf_counter() - start:.1f} s ({card})',
+          flush=True)
+    return waits
 
 
 def print_host_split(times: HostTimes, n_batches: int, label: str) -> None:
@@ -3891,6 +4455,16 @@ def coco_phase(port, card: str, tmp: str) -> dict:
     if missing or len(train['step_ms']) != n_train // TRAIN_BATCH:
         raise AssertionError(f'cocokp train: {missing} never ran, or '
                              f'{len(train["step_ms"])} steps')
+    # the train phase's (d): the loop's wait per batch, loader workers 0
+    # and 8, at batches of LOADER_BATCH (the tree holds 2 batches of 8)
+    waits = {workers: loader_wait(port, card, [
+        '--dataset=cocokp', '--basenet=shufflenetv2k16',
+        f'--cocokp-square-edge={COCOKP_TRAIN_EDGE}', *COCOKP_AUGMENT,
+        f'--batch-size={LOADER_BATCH}', '--epochs=1', '--log-interval=1',
+        '--output', os.path.join(tmp, f'workers{workers}')] + kp_flags,
+        workers) for workers in (0, 8)}
+    if any(len(w) != n_train // LOADER_BATCH for w in waits.values()):
+        raise AssertionError(f'loader waits: {waits}')
 
     # (c) cocokp eval: the CLI, then the bias-shifted model
     coco_eval_cli(out + '.npz', kp_flags, out + '.eval', n_train)
@@ -3922,7 +4496,7 @@ def coco_phase(port, card: str, tmp: str) -> dict:
           flush=True)
     return dict(train=train, times=times, eval=run['counts'],
                 k1=kp_kernels['k1'], k2=kp_kernels['k2'], det=det,
-                crowd=crowd, paths=paths)
+                crowd=crowd, paths=paths, waits=waits)
 
 
 # -------------------------------------------------------------- posetrack

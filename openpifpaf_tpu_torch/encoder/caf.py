@@ -1,8 +1,8 @@
 """CAF encoder: ground-truth skeletons -> association field training targets.
 
-Port copy of the numpy path of ``openpifpaf_tpu/encoder/caf.py``
-(``:22-120``; the C++ painter is not ported, as in ``cif.py``).  For every
-skeleton edge with both endpoints visible, fill the cells along the
+Port of ``openpifpaf_tpu/encoder/caf.py``: the C++ painter with
+``use_native`` (the default; ``caf.py:62-70``), else numpy, as in
+``cif.py``.  For every skeleton edge with both endpoints visible, fill the cells along the
 segment between the endpoints with confidence 1, the two offset vectors to
 the endpoints and the two endpoint scales.  Closer edges win contested
 cells.
@@ -18,6 +18,7 @@ import dataclasses
 
 import numpy as np
 
+from . import native
 from .annrescaler import AnnRescaler
 from .cif import field_shape
 from .. import headmeta
@@ -28,6 +29,7 @@ class CafEncoder:
     meta: headmeta.Caf
     min_size: int = 3         # reference: paint at least a 3-cell-wide band
     v_threshold: int = 0
+    use_native: bool = True   # the C++ painter (csrc/encoders.cpp)
 
     def __call__(self, image, anns, meta_info=None) -> dict:
         e = self.meta.n_fields
@@ -43,11 +45,24 @@ class CafEncoder:
         vec_mask = np.zeros((e, 2, h, w), bool)
         scale = np.zeros((e, 2, h, w), np.float32)
         scale_mask = np.zeros((e, 2, h, w), bool)
-        closest = np.full((e, h, w), np.inf, np.float32)
 
         skeleton = np.asarray(self.meta.skeleton, np.int32) - 1
         sigmas = np.asarray(self.meta.sigmas, np.float32)
         pad = self.min_size / 2.0
+        targets = {
+            'conf': conf, 'conf_mask': conf_mask,
+            'vec': vec, 'vec_mask': vec_mask,
+            'scale': scale, 'scale_mask': scale_mask,
+        }
+
+        if self.use_native:
+            native.paint_caf(kp_sets, [rescaler.scale(kps) for kps in kp_sets],
+                             sigmas, skeleton, h=h, w=w,
+                             min_size=self.min_size,
+                             v_threshold=float(self.v_threshold), **targets)
+            return targets
+
+        closest = np.full((e, h, w), np.inf, np.float32)
 
         for kps in kp_sets:
             inst_scale = rescaler.scale(kps)
@@ -95,8 +110,4 @@ class CafEncoder:
                 scale[ei, 1, jsel, isel] = s2
                 scale_mask[ei, :, jsel, isel] = True
 
-        return {
-            'conf': conf, 'conf_mask': conf_mask,
-            'vec': vec, 'vec_mask': vec_mask,
-            'scale': scale, 'scale_mask': scale_mask,
-        }
+        return targets

@@ -1,9 +1,10 @@
 """CIF encoder: ground-truth keypoints -> intensity field training targets.
 
-Port copy of the numpy path of ``openpifpaf_tpu/encoder/cif.py``
-(``:77-99``).  The JAX package's C++ painter (``use_native``,
-``encoder/native.py``) is host code with the same output and is not
-ported; this encoder always paints in numpy.
+Port of ``openpifpaf_tpu/encoder/cif.py``.  With ``use_native`` (the
+default, as in JAX) the C++ painter of ``csrc/encoders.cpp`` paints
+(``native.py``, built at first use; a failed build raises), as JAX's
+``cif.py:65-73`` does; ``use_native=False`` paints in numpy (``:77-99``),
+the oracle the tests hold the library to.
 
 For every visible keypoint, paint a ``side_length``² cell neighborhood:
 confidence 1 in the core, exact offset vectors from each painted cell to
@@ -24,6 +25,7 @@ import dataclasses
 
 import numpy as np
 
+from . import native
 from .annrescaler import AnnRescaler
 from .. import headmeta
 
@@ -39,6 +41,7 @@ class CifEncoder:
     meta: headmeta.Cif
     side_length: int = 4
     v_threshold: int = 0      # min visibility flag to paint (0: also occluded)
+    use_native: bool = True   # the C++ painter (csrc/encoders.cpp)
 
     def __call__(self, image, anns, meta_info=None) -> dict:
         f = self.meta.n_fields
@@ -54,11 +57,23 @@ class CifEncoder:
         vec_mask = np.zeros((f, 1, h, w), bool)
         scale = np.zeros((f, 1, h, w), np.float32)
         scale_mask = np.zeros((f, 1, h, w), bool)
-        closest = np.full((f, h, w), np.inf, np.float32)  # competition dist
 
         s_l = self.side_length
         offset = (s_l - 1) / 2.0
         sigmas = np.asarray(self.meta.sigmas, np.float32)
+        targets = {
+            'conf': conf, 'conf_mask': conf_mask,
+            'vec': vec, 'vec_mask': vec_mask,
+            'scale': scale, 'scale_mask': scale_mask,
+        }
+
+        if self.use_native:
+            native.paint_cif(kp_sets, [rescaler.scale(kps) for kps in kp_sets],
+                             sigmas, h=h, w=w, side_length=s_l,
+                             v_threshold=float(self.v_threshold), **targets)
+            return targets
+
+        closest = np.full((f, h, w), np.inf, np.float32)  # competition dist
 
         for kps in kp_sets:
             inst_scale = rescaler.scale(kps)
@@ -83,8 +98,4 @@ class CifEncoder:
                         vec_mask[fi, 0, j, i] = True
                         scale[fi, 0, j, i] = joint_scale
                         scale_mask[fi, 0, j, i] = joint_scale > 0
-        return {
-            'conf': conf, 'conf_mask': conf_mask,
-            'vec': vec, 'vec_mask': vec_mask,
-            'scale': scale, 'scale_mask': scale_mask,
-        }
+        return targets

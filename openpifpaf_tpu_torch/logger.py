@@ -3,7 +3,8 @@
 Port of ``openpifpaf_tpu/logger.py``.  Reference parity:
 ``src/openpifpaf/logger.py:~15``: ``--debug``, ``-q/--quiet``, the version
 line, and the runtime checks of ``debug_checks`` (``--debug-checks``,
-also enabled by ``--debug``).
+also enabled by ``--debug``).  ``--log-stats`` is accepted as the JAX CLIs
+accept it (``logger.py:21``); nothing in either package reads it.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ def cli(parser: argparse.ArgumentParser) -> None:
                             'debug checks)')
     group.add_argument('-q', '--quiet', default=False, action='store_true',
                        help='only warnings and errors')
+    group.add_argument('--log-stats', default=False, action='store_true',
+                       help='enable stats logging')
     debug_checks.cli(parser)
 
 

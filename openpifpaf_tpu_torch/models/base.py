@@ -53,16 +53,37 @@ class BatchNorm(nn.BatchNorm2d):
     batches on stage 4's grid.  So train mode normalizes without touching
     the statistics and updates them here in f32, flax's way; eval mode is
     ``nn.BatchNorm2d``'s.
+
+    ``update_stats`` False normalizes with the batch statistics and leaves
+    the running ones as they are: the trainer sets it while ``--remat``
+    recomputes the forward, so that a step updates them once.
     """
+
+    update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
-            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
-            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+        return self.batch_forward(x)
+
+    def batch_forward(self, x: torch.Tensor,
+                      channels: slice = slice(None)) -> torch.Tensor:
+        """Train mode on NCHW ``x`` that holds the layer's ``channels``
+        (all of them, or one parity of them in the fused training plan):
+        normalized by the batch statistics, and those channels' running
+        statistics updated."""
+        if self.update_stats:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                           correction=0)
+                self.running_mean[channels].mul_(BN_MOMENTUM).add_(
+                    mean, alpha=1 - BN_MOMENTUM)
+                self.running_var[channels].mul_(BN_MOMENTUM).add_(
+                    var, alpha=1 - BN_MOMENTUM)
+        # contiguous: the CPU's channels-last batch_norm backward gets the
+        # input's gradient wrong for a strided weight (torch 2.13)
+        return F.batch_norm(x, None, None, self.weight[channels].contiguous(),
+                            self.bias[channels].contiguous(), True, 0.0,
                             self.eps)
 
 

@@ -1,9 +1,10 @@
-"""Inference execution plans for ShuffleNetV2K: the pair plan and the r3 plan.
+"""Execution plans for ShuffleNetV2K: the pair plan and the r3 plan, for
+inference and for training.
 
-Port of the inference half of ``openpifpaf_tpu/models/fused_shufflenet.py``
-(the training half waits for the training slice).  Both plans compute the
-math of the canonical ``ShuffleNetV2K`` (``shufflenetv2k.py``) from its
-parameters, which stay the weight holder; only the execution differs.
+Port of ``openpifpaf_tpu/models/fused_shufflenet.py``.  Every plan computes
+the math of the canonical ``ShuffleNetV2K`` (``shufflenetv2k.py``) from its
+parameters, which stay the weight holder; only the execution differs.  The
+training plans are at the end of the file (``shell_apply_train``).
 
 - **The pair plan** (``backbone_apply_pair``, ``fused_shufflenet.py:331-482``)
   carries each stage as a parity pair ``(a, b)`` with ``logical =
@@ -33,7 +34,7 @@ once after conv1, and the features leave as ``(B, H, W, C)``.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Union
+from typing import Dict, List, NamedTuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -269,3 +270,177 @@ def backbone_features(module: ShuffleNetV2K, x: torch.Tensor,
     apply = backbone_apply_pair if plan.pair else backbone_apply
     return apply(module, x, plan)
 
+
+
+# ---------------------------------------------------------------- training
+# The training plans of ``fused_shufflenet.py:129-281`` (r3) and ``:485-607``
+# (pair): the same routing folds as the inference plans, on the canonical
+# parameters under autograd, with BatchNorm in batch mode through the
+# Shell's own ``base.BatchNorm`` layers (``batch_forward``), so the running
+# statistics move as in the canonical graph.  Nothing is folded ahead of
+# time: every 1x1 conv reads its kernel as an (in, out) view of the
+# parameter, the splits are strided views that the matmul reads in place,
+# and a pair's parity halves take the kernel's rows, a depthwise kernel's
+# channels and a BatchNorm's channels by parity.  So the gradients land on
+# the canonical parameters, routed back through the same index maps.  The
+# one materialization the JAX plans keep (the interleave of two halves,
+# ``x @ Px + b2 @ Po`` there) is ``ops.pair_chain.interleave`` here: a
+# copy, exact in every dtype (a 0/1 matmul would round under TF32).  State
+# runs channels-last ``(B, H, W, C)``; under the trainer's bf16 autocast
+# each matmul and conv computes in bf16 as the canonical graph's do.
+def _kernel(conv) -> torch.Tensor:
+    """A 1x1 conv's weight as the (in, out) matmul weight (a view)."""
+    return conv.weight[:, :, 0, 0].t()
+
+
+def _rows(x: torch.Tensor, channels: slice = slice(None)) -> torch.Tensor:
+    """The (pixels, channels) rows of a contiguous channels-last tensor,
+    a strided view for a channel slice."""
+    return x.reshape(-1, x.shape[-1])[:, channels]
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor,
+            channels: slice = slice(None)) -> torch.Tensor:
+    """``x[..., channels] @ w`` over the last axis."""
+    return (_rows(x, channels) @ w).view(*x.shape[:-1], w.shape[-1])
+
+
+def _matmul_pair(pair, w: torch.Tensor,
+                 channels: slice = slice(None)) -> torch.Tensor:
+    """``logical[..., channels] @ w`` of a pair: the kernel rows by
+    parity (``channels`` of each half: a stride-1 block's split)."""
+    a, b = pair
+    return _matmul(a, w[0::2], channels) + _matmul(b, w[1::2], channels)
+
+
+def _bn_train(bn, x: torch.Tensor, channels: slice = slice(None)):
+    """Batch-mode BatchNorm of a channels-last tensor holding ``bn``'s
+    ``channels``."""
+    return bn.batch_forward(x.permute(0, 3, 1, 2), channels).permute(
+        0, 2, 3, 1)
+
+
+def _dw_train(x: torch.Tensor, conv, stride: int,
+              channels: slice = slice(None)) -> torch.Tensor:
+    """A depthwise conv (SAME) of a channels-last tensor holding ``conv``'s
+    ``channels``."""
+    weight = conv.weight[channels]
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight, None, stride,
+                 weight.shape[-1] // 2, groups=x.shape[-1])
+    return y.permute(0, 2, 3, 1)
+
+
+def _branch2_train(b2, block, stride: int) -> torch.Tensor:
+    """relu(bn(conv2(bn(dw(relu(bn(b2))))))) from branch2's first product."""
+    b2 = torch.relu(_bn_train(block.branch2_norm1, b2))
+    b2 = _bn_train(block.branch2_dwnorm,
+                   _dw_train(b2, block.branch2_dwconv, stride))
+    b2 = _matmul(b2.contiguous(), _kernel(block.branch2_conv2))
+    return torch.relu(_bn_train(block.branch2_norm2, b2))
+
+
+def _stem_train(module, x: torch.Tensor) -> torch.Tensor:
+    """conv1, its BatchNorm and relu: NCHW images -> channels-last."""
+    x = x.contiguous(memory_format=torch.channels_last)
+    x = F.conv2d(x, module.conv1.weight, None, 2, 1)
+    x = torch.relu(module.conv1_norm.batch_forward(x))
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def _head_train(module, state, pair: bool) -> torch.Tensor:
+    """conv5 (folding the last interleave of a pair), BatchNorm, relu."""
+    w = _kernel(module.conv5)
+    x = _matmul_pair(state, w) if pair else _matmul(state, w)
+    return torch.relu(_bn_train(module.conv5_norm, x))
+
+
+def _block_stride2_train(state, block):
+    """Stride-2 InvertedResidualK on a dense state (stage-2 entry, or every
+    stage of the r3 plan) or a pair; returns the pair ``(b1, b2)``."""
+    if isinstance(state, tuple):
+        d1 = tuple(_bn_train(block.branch1_dwnorm,
+                             _dw_train(x, block.branch1_dwconv, 2, side),
+                             side).contiguous()
+                   for x, side in zip(state, (slice(0, None, 2),
+                                              slice(1, None, 2))))
+        b1 = _matmul_pair(d1, _kernel(block.branch1_conv))
+        b2 = _matmul_pair(state, _kernel(block.branch2_conv1))
+    else:
+        d1 = _bn_train(block.branch1_dwnorm,
+                       _dw_train(state, block.branch1_dwconv, 2))
+        b1 = _matmul(d1.contiguous(), _kernel(block.branch1_conv))
+        b2 = _matmul(state, _kernel(block.branch2_conv1))
+    b1 = torch.relu(_bn_train(block.branch1_norm, b1))
+    return b1, _branch2_train(b2, block, 2)
+
+
+def _block_stride1_pair_train(pair, block):
+    """Stride-1 block on a pair: ``x2 = logical[half:]`` is ``a[q:]``,
+    ``b[q:]`` with the kernel rows by parity; the new pair is
+    ``(interleave(a[:q], b[:q]), b2)``."""
+    a, b = pair
+    q = a.shape[-1] // 2
+    b2 = _matmul_pair(pair, _kernel(block.branch2_conv1), slice(q, None))
+    return pc.interleave(a[..., :q], b[..., :q]), _branch2_train(b2, block, 1)
+
+
+def _block_stride1_train(x, block):
+    """Stride-1 block on a dense state (r3): the split a strided view, the
+    concat and shuffle one interleave."""
+    half = x.shape[-1] // 2
+    b2 = _matmul(x, _kernel(block.branch2_conv1), slice(half, None))
+    return pc.interleave(x[..., :half], _branch2_train(b2, block, 1))
+
+
+def supports_pair_train(module) -> bool:
+    """The pair training plan needs even stage half-widths (the JAX
+    package's ``supports_pair``); it runs no K2, so any kernel size."""
+    return (supports(module) and all(
+        (c // 2) % 2 == 0 for c in module.stages_out_channels[1:4]))
+
+
+def backbone_apply_train(module: ShuffleNetV2K,
+                         x: torch.Tensor) -> torch.Tensor:
+    """Training forward of the backbone through the pair plan where
+    ``supports_pair_train``, else the r3 plan: NCHW images -> (B, H, W, C)
+    features; updates the BatchNorm running statistics."""
+    pair = supports_pair_train(module)
+    state = _stem_train(module, x)
+    for stage_i, repeats in enumerate(module.stages_repeats, start=2):
+        state = _block_stride2_train(state, getattr(module,
+                                                    f'stage{stage_i}_0'))
+        if not pair:
+            state = pc.interleave(*state)
+        for bi in range(1, repeats):
+            block = getattr(module, f'stage{stage_i}_{bi}')
+            state = (_block_stride1_pair_train(state, block) if pair
+                     else _block_stride1_train(state, block))
+    return _head_train(module, state, pair)
+
+
+def supports_train(shell) -> bool:
+    """Training-plan eligibility (``fused_shufflenet.py:270-281``): a
+    batchnorm ShuffleNetV2K shell without cross-talk or head dropout, whose
+    only BatchNorm layers are the backbone's."""
+    basenet = shell.basenet
+    in_basenet = {id(m) for m in basenet.modules()}
+    return (supports(basenet)
+            and getattr(shell, 'cross_talk', 0.0) == 0.0
+            and all(getattr(h, 'dropout', None) is None
+                    for h in shell.head_nets)
+            and all(id(m) in in_basenet for m in shell.modules()
+                    if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)))
+
+
+def shell_apply_train(shell, x: torch.Tensor) -> List[torch.Tensor]:
+    """The Shell's train-mode forward through the training plan: NCHW
+    images -> the head fields, with the backbone's running statistics
+    updated; what ``shell(x)`` computes in train mode where
+    ``supports_train(shell)``.  A tracking shell's paired heads see the
+    channel-concatenated frame-pair features, as
+    ``TrackingShell.heads_from_features``."""
+    from .shell import apply_heads   # pylint: disable=import-outside-toplevel
+
+    features = backbone_apply_train(shell.basenet, x)
+    return apply_heads(shell.head_nets, features.permute(0, 3, 1, 2),
+                       getattr(shell, 'head_paired', None))

@@ -155,6 +155,11 @@ class Model:
     # (before the first call, or then refold()) to run the canonical graph
     # in __call__
     fused_inference = True
+    # True: the trainer takes the folded-routing training plan
+    # (fused_shufflenet.shell_apply_train) where supports_train, as the
+    # JAX Model's default does.  Off by default here: on an H100 the plan's
+    # step is slower than the canonical graph's (PERF.md)
+    fused_train = False
 
     def __init__(self, module: Shell, head_metas: Sequence[headmeta_mod.Base],
                  *, base_stride: int, basenet_name: str = '',

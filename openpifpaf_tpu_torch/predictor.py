@@ -18,7 +18,6 @@ Data-parallel eval is not ported.
 from __future__ import annotations
 
 import argparse
-import cProfile
 import time
 from typing import Iterator, List, Optional, Sequence, Tuple
 
@@ -29,6 +28,7 @@ from torch.utils.data import DataLoader
 from . import datasets, decoder as decoder_mod, models, transforms
 from .decoder.pose_similarity import oks_matrix
 from .device import resolve_device
+from .profiler import Profiler
 
 
 class Predictor:
@@ -135,7 +135,7 @@ class Predictor:
         self.last_nn_time = time.perf_counter() - start
 
         start = time.perf_counter()
-        pred_batch = self.decoder.batch_fields(fields, metas=metas)
+        pred_batch = self.decode(fields, metas)
         self.last_decoder_time = time.perf_counter() - start
 
         results = []
@@ -145,6 +145,15 @@ class Predictor:
                 preds = [ann.json_data() for ann in preds]
             results.append((preds, meta))
         return results
+
+    def decode(self, fields, metas) -> List[List]:
+        """The decoder on a batch's fields; under ``Profiler`` with
+        ``--profile-decoder`` (``Decoder.profile``, the file of its
+        cProfile stats), as the JAX ``Predictor`` does."""
+        if decoder_mod.Decoder.profile:
+            with Profiler(out_name=decoder_mod.Decoder.profile)():
+                return self.decoder.batch_fields(fields, metas=metas)
+        return self.decoder.batch_fields(fields, metas=metas)
 
     # ------------------------------------------------------------------
     def preprocess_factory(self, *, long_edge: Optional[int] = None,
@@ -199,14 +208,7 @@ class Predictor:
             self.total_nn_time += self.last_nn_time
 
             start = time.perf_counter()
-            if decoder_mod.Decoder.profile:
-                profile = cProfile.Profile()
-                pred_batch = profile.runcall(
-                    self.decoder.batch_fields, fields, metas=meta_batch)
-                profile.dump_stats(decoder_mod.Decoder.profile)
-            else:
-                pred_batch = self.decoder.batch_fields(fields,
-                                                       metas=meta_batch)
+            pred_batch = self.decode(fields, meta_batch)
             self._sync()
             self.last_decoder_time = time.perf_counter() - start
             self.total_decoder_time += self.last_decoder_time

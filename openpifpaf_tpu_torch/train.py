@@ -31,8 +31,6 @@ LOG = logging.getLogger(__name__)
 # flags of the JAX train CLI whose paths the port does not have yet
 NOT_PORTED = {
     'ddp': 'multi-host data parallel training',
-    'orbax': 'Orbax train-state checkpoints',
-    'remat': 'rematerialized training forward',
 }
 
 

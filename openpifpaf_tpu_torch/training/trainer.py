@@ -5,28 +5,50 @@ backward, gradient clipping, optimizer step and an EMA of the parameters;
 per epoch a val pass and the checkpoint files; json-lines log; SIGTERM
 checkpoints at the next epoch boundary.
 
-The forward is the port's canonical graph (``Shell``) under autograd in
-train mode, bf16 through autocast with f32 parameters when the model is
-``bf16``, as the JAX ``Factory(bf16=True)`` trains.  So ``--head-dropout``
-and ``--cross-talk`` act in every step (the JAX trainer leaves its fused
-plans for the canonical graph when either is set,
-``fused_shufflenet.py:237``, ``:278-279``).  BatchNorm updates its
-running statistics flax's way (``models/base.BatchNorm``).  The served
+The train forward is autograd in train mode, bf16 through autocast with
+f32 parameters when the model is ``bf16``, as the JAX
+``Factory(bf16=True)`` trains.  By default it runs the canonical graph
+(``Shell``).  The folded-routing training plan
+(``fused_shufflenet.shell_apply_train``: the pair plan where the widths
+allow it, the r3 plan otherwise) is taken under the JAX trainer's
+conditions (``trainer.py:163-170``) once the model's ``fused_train`` is
+set: ``fused_shufflenet.supports_train``, that is a batchnorm
+ShuffleNetV2K without ``--cross-talk`` or ``--head-dropout``, and not
+``--fix-batch-norm``.  ``fused_train`` is off by default, where JAX's is
+on: on the card the plan's step is slower than the canonical graph's.
+The val forward is the canonical graph in eval mode.  BatchNorm updates
+its running statistics flax's way (``models/base.BatchNorm``).  The served
 forward folds BatchNorm once (``Model.inference_plan``), so every step
 calls ``Model.refold()``: a ``Predictor`` on the same model then serves the
 trained weights.
 
+``--remat`` (``trainer.py:179-184``) runs both forwards under
+``torch.utils.checkpoint`` with a selective policy that keeps the outputs
+of the matmuls and convolutions and recomputes the rest in the backward
+(JAX's ``dots_with_no_batch_dims_saveable``).  The recomputation replays
+dropout's draws (the checkpoint restores the generator) and leaves the
+BatchNorm running statistics alone (``BatchNorm.update_stats``), so a step
+under ``--remat`` gives the loss, gradients and statistics of one without.
+
 Checkpoints, in the JAX package's npz format (``models/checkpoint.py``):
 ``<out>.npz`` and ``<out>.epochNNN.npz`` hold the EMA parameters with the
 current batch statistics; ``<out>.train.npz`` holds the raw parameters,
-the EMA (``ema/...``) and the statistics, for ``--resume``.
+the EMA (``ema/...``) and the statistics, for ``--resume``.  With
+``--orbax`` (the JAX flag's name, ``trainer.py:282-300``) each checkpoint
+also writes the full train state to ``<out>.orbax/epoch_NNN.pt``
+(``torch.save``, written to a temporary file and renamed): the step, the
+raw parameters, the batch statistics, the EMA, the optimizer's state
+(momentum, Adam moments), the scheduler's and ``log_sigmas``.  Like JAX's,
+``--resume`` reads ``.train.npz`` only.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
+import os
 import signal
 import time
 from typing import List
@@ -34,13 +56,42 @@ from typing import List
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as checkpoint_util
 
 from .optimize import OptimizeFactory
 from .. import debug_checks
 from ..models import checkpoint as checkpoint_mod
+from ..models import fused_shufflenet
+from ..models.base import BatchNorm
 from ..models.from_jax import from_jax_variables, to_jax_variables
 
 LOG = logging.getLogger(__name__)
+
+# the ops whose outputs ``--remat`` keeps: the products (JAX's policy keeps
+# its dots without batch axes); everything else is recomputed
+_REMAT_SAVED = frozenset((
+    torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+    torch.ops.aten.bmm.default, torch.ops.aten.convolution.default))
+
+
+def _remat_policy(ctx, op, *args, **kwargs):  # pylint: disable=unused-argument
+    return (checkpoint_util.CheckpointPolicy.MUST_SAVE if op in _REMAT_SAVED
+            else checkpoint_util.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+@contextlib.contextmanager
+def _frozen_statistics(module: nn.Module, inner):
+    """``inner`` entered with every ``BatchNorm`` of ``module`` leaving its
+    running statistics alone."""
+    layers = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for layer in layers:
+        layer.update_stats = False
+    try:
+        with inner:
+            yield
+    finally:
+        for layer in layers:
+            del layer.update_stats
 
 
 class Trainer:
@@ -50,6 +101,8 @@ class Trainer:
     log_interval = 10         # batches between log lines
     val_interval = 1
     fix_batch_norm = False
+    remat = False             # recompute the forward in the backward
+    orbax = False             # also write the full train state
 
     @classmethod
     def cli(cls, parser: argparse.ArgumentParser) -> None:
@@ -67,6 +120,14 @@ class Trainer:
         group.add_argument('--fix-batch-norm', default=cls.fix_batch_norm,
                            action='store_true',
                            help='freeze batch norm statistics')
+        group.add_argument('--remat', default=cls.remat, action='store_true',
+                           help='recompute the forward in the backward, '
+                                'keeping the matmul and convolution outputs '
+                                '(less activation memory, more compute)')
+        group.add_argument('--orbax', default=cls.orbax, action='store_true',
+                           help='also write the full train state (optimizer '
+                                'and scheduler included) to '
+                                '<output>.orbax/epoch_NNN.pt')
 
     @classmethod
     def configure(cls, args: argparse.Namespace) -> None:
@@ -76,6 +137,8 @@ class Trainer:
         cls.log_interval = args.log_interval
         cls.val_interval = args.val_interval
         cls.fix_batch_norm = args.fix_batch_norm
+        cls.remat = args.remat
+        cls.orbax = args.orbax
 
     # ------------------------------------------------------------------
     def __init__(self, model, loss_fn, optimize_factory: OptimizeFactory,
@@ -131,10 +194,33 @@ class Trainer:
                     for k, v in t.items()} for t in targets]
         return images, targets
 
-    def _forward(self, images):
-        with torch.autocast(self.device.type, dtype=torch.bfloat16,
-                            enabled=self.model.bf16):
-            return self.shell(images)
+    def uses_train_plan(self) -> bool:
+        """Whether the train forward takes the folded-routing plan."""
+        return (getattr(self.model, 'fused_train', False)
+                and not self.fix_batch_norm
+                and fused_shufflenet.supports_train(self.shell))
+
+    def _forward(self, images, train: bool = False):
+        plan = train and self.uses_train_plan()
+
+        def forward(x):
+            with torch.autocast(self.device.type, dtype=torch.bfloat16,
+                                enabled=self.model.bf16):
+                if plan:
+                    return fused_shufflenet.shell_apply_train(self.shell, x)
+                return self.shell(x)
+
+        if not self.remat:
+            return forward(images)
+
+        def contexts():
+            saving, recomputing = \
+                checkpoint_util.create_selective_checkpoint_contexts(
+                    _remat_policy)
+            return saving, _frozen_statistics(self.shell, recomputing)
+
+        return checkpoint_util.checkpoint(forward, images, use_reentrant=False,
+                                          context_fn=contexts)
 
     def train_step(self, images, targets):
         """One optimizer step; returns (total, components) as tensors."""
@@ -144,8 +230,8 @@ class Trainer:
             for m in self.shell.modules():
                 if isinstance(m, nn.BatchNorm2d):
                     m.eval()
-        total, comps = self.loss_fn(self._forward(images), targets,
-                                    log_sigmas=self.log_sigmas)
+        total, comps = self.loss_fn(self._forward(images, train=True),
+                                    targets, log_sigmas=self.log_sigmas)
         debug_checks.check_finite(total, 'non-finite training loss')
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
@@ -216,6 +302,45 @@ class Trainer:
                            for k, v in ema.items() if k.startswith('params/')})
         checkpoint_mod.save(self.out + '.train.npz', variables=train_vars, **kw)
         LOG.info('checkpoint written: %s', name)
+        if self.orbax:
+            self.write_train_state(epoch)
+
+    def train_state(self, epoch: int) -> dict:
+        """The full train state, as ``--orbax`` writes it (tensors on the
+        CPU): parameters, EMA and ``log_sigmas`` as trained, the buffers
+        (batch statistics), the optimizer's and the scheduler's states."""
+        names = [name for name, _ in self.shell.named_parameters()]
+        buffers = dict(self.shell.named_buffers())
+
+        def on_cpu(tensors):
+            return {k: v.detach().cpu() for k, v in tensors}
+
+        optimizer = self.optimizer.state_dict()
+        optimizer['state'] = {
+            k: {n: v.cpu() if torch.is_tensor(v) else v
+                for n, v in state.items()}
+            for k, state in optimizer['state'].items()}
+        return {
+            'step': self.step, 'epoch': epoch,
+            'params': on_cpu(zip(names, self.params)),
+            'batch_stats': on_cpu(buffers.items()),
+            'ema': on_cpu(zip(names, self.ema)),
+            'optimizer': optimizer,
+            'scheduler': self.scheduler.state_dict(),
+            'log_sigmas': (None if self.log_sigmas is None
+                           else self.log_sigmas.detach().cpu()),
+        }
+
+    def write_train_state(self, epoch: int) -> str:
+        """``<out>.orbax/epoch_NNN.pt``, written to a temporary file and
+        renamed, so that a reader never sees a partial file."""
+        path = f'{self.out}.orbax/epoch_{epoch:03d}.pt'
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f'{path}.{os.getpid()}.tmp'
+        torch.save(self.train_state(epoch), tmp)
+        os.replace(tmp, path)
+        LOG.info('train state written: %s', path)
+        return path
 
     def load_train_checkpoint(self, path: str, steps_per_epoch: int) -> int:
         """Restores the parameters, the EMA, the batch statistics and the

@@ -42,6 +42,7 @@ from openpifpaf_tpu_torch.plugins.coco import (CocoDataset, CocoDet, CocoKp,
                                                constants)
 
 from test_torch_port_encoder import assert_targets_equal
+from test_torch_port_encoder import numpy_painters  # noqa: F401  (fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZES = ((129, 97), (97, 129)) * 3

@@ -57,6 +57,7 @@ from test_decoder import build_fields, paint_caf, synthetic_pose
 from test_torch_port_decode import assert_same_decode, metas
 from test_torch_port_decode import one_torch_thread  # noqa: F401  (fixture)
 from test_torch_port_encoder import assert_targets_equal
+from test_torch_port_encoder import numpy_painters  # noqa: F401  (fixture)
 from test_torch_port_models import NARROW, random_variables
 from test_torch_port_train import F32_EPS, OPTIMIZERS, configured
 
@@ -344,6 +345,7 @@ def test_three_head_train_step_matches_jax(monkeypatch):
 
     model = port_three_heads(jax_checkpoint.flatten_tree(variables),
                              three_head_metas(headmeta))
+    model.fused_train = False   # canonical against canonical, as JAX's
     before = {k: v.clone() for k, v in model.module.state_dict().items()}
     trainer = Trainer(model, losses.Factory().factory(model.head_metas),
                       configured(OptimizeFactory(), settings), '/dev/null')

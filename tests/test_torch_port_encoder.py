@@ -2,12 +2,15 @@
 the training transforms and the CIF/CAF encoders.
 
 The same ground truth (numpy, from a seed) goes through both packages.
-The JAX encoders run their numpy path (``use_native=False``), the one the
-port copies.  Masks must be equal bit for bit and the float targets within
+The JAX encoders run their numpy path (``use_native=False``), and so do
+the port's (``numpy_painters``, which the other files that hold targets
+import too); ``test_torch_port_native.py`` holds the C++ painters.  Masks must be equal bit for bit and the float targets within
 1e-6; transforms must give the same meta and annotations, and images
 within 1 grey level where the JAX package resizes with PIL
 (``test_torch_port_predictor.py::test_rescale_against_pil``).
 """
+
+import functools
 
 import numpy as np
 import PIL.Image
@@ -27,6 +30,24 @@ from openpifpaf_tpu_torch.plugins.toykp import ToyKp, ToyKpDataset
 from test_torch_port_models import coco_metas
 
 SIZE = 97
+
+
+def pin_numpy_painters(monkeypatch) -> None:
+    """The port's CIF and CAF encoders built with ``use_native=False``
+    unless told otherwise: the numpy painters that the JAX package's
+    ``use_native=False`` encoders are held to."""
+    for cls in (encoder.CifEncoder, encoder.CafEncoder):
+        monkeypatch.setattr(cls, '__init__', functools.partialmethod(
+            cls.__init__, use_native=False))
+
+
+@pytest.fixture(scope='module', autouse=True)
+def numpy_painters():
+    """``pin_numpy_painters`` for a whole test module, its module-scoped
+    fixtures included."""
+    with pytest.MonkeyPatch.context() as monkeypatch:
+        pin_numpy_painters(monkeypatch)
+        yield
 
 
 def metas_pair():

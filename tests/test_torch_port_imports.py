@@ -88,7 +88,7 @@ def test_port_sources_found():
                  'models/converter.py', 'models/model_migration.py',
                  'migrate.py', 'export_program.py',
                  'export_onnx.py', 'export_coreml.py', 'onnx_native.py',
-                 'count_ops.py'):
+                 'count_ops.py', 'encoder/native.py', 'profiler.py'):
         assert os.path.join(REPO, 'openpifpaf_tpu_torch', name) in files
     assert len(files) > 20
 
@@ -170,12 +170,50 @@ def test_import_loads_no_jax_and_builds_nothing():
         'openpifpaf_tpu_torch.export_coreml, '
         'openpifpaf_tpu_torch.onnx_native, '
         'openpifpaf_tpu_torch.count_ops, '
+        'openpifpaf_tpu_torch.profiler, '
+        'openpifpaf_tpu_torch.encoder.native as native, '
         'openpifpaf_tpu_torch.kernels as k\n'
         'import openpifpaf_tpu_torch.plugins as p; p.register()\n'
         f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]\n'
         'assert not bad, bad\n'
-        'assert not k._LIBS\n')
+        'assert not k._LIBS and native._LIB is None\n')
     env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, '-c', code], check=True, env=env,
+                   cwd=REPO, timeout=120)
+
+
+def test_native_painters_build_at_first_use(tmp_path):
+    """Importing the encoders, building them and a data module's training
+    chain compiles nothing and loads no library; the first native paint
+    builds ``csrc/encoders.cpp`` with ``$CXX`` (here a compiler that
+    records its call and fails, in a fresh interpreter)."""
+    log = tmp_path / 'cxx.log'
+    cxx = tmp_path / 'cxx'
+    cxx.write_text(f'#!/bin/sh\necho "$@" >> {log}\nexit 1\n')
+    cxx.chmod(0o755)
+    code = (
+        'import numpy as np, torch\n'
+        'from openpifpaf_tpu_torch import encoder\n'
+        'from openpifpaf_tpu_torch.encoder import native\n'
+        'from openpifpaf_tpu_torch.plugins.toykp import ToyKp, '
+        'ToyKpDataset, coco_head_metas\n'
+        'metas = coco_head_metas()\n'
+        'for m in metas: m.base_stride = 16\n'
+        'dm = ToyKp(); dm.head_metas = metas\n'
+        'preprocess = dm.preprocess(np.random.default_rng(0))\n'
+        'encoders = encoder.factory(metas)\n'
+        'assert all(e.use_native for e in encoders)\n'
+        'assert native._LIB is None and native.PAINTS == 0\n'
+        'import os\n'
+        f'assert not os.path.exists({str(log)!r})\n'
+        'try:\n'
+        '    ToyKpDataset(1, 65, preprocess, seed=0)[0]\n'
+        'except RuntimeError as e:\n'
+        '    assert "native painters" in str(e), e\n'
+        'else:\n'
+        '    raise AssertionError("no build at first use")\n'
+        f'assert "encoders.cpp" in open({str(log)!r}).read()\n')
+    env = dict(os.environ, PYTHONPATH=REPO, CXX=str(cxx))
     subprocess.run([sys.executable, '-c', code], check=True, env=env,
                    cwd=REPO, timeout=120)
 
@@ -271,3 +309,6 @@ def test_kernel_sources_and_build_dir():
         assert kernels.library_path(name).parent == kernels.BUILD_DIR
     assert kernels.BUILD_DIR.relative_to(REPO).as_posix() == \
         'build/openpifpaf_tpu_torch'
+    from openpifpaf_tpu_torch.encoder import native
+    assert native.SOURCE == kernels.CSRC / 'encoders.cpp'
+    assert native.library_path().parent == kernels.BUILD_DIR

@@ -196,6 +196,7 @@ def test_three_head_train_steps_match_jax(small_modules):
 
     model = port_three_heads(jax_checkpoint.flatten_tree(variables),
                              three_head_metas(headmeta))
+    model.fused_train = False   # canonical against canonical, as JAX's
     before = {k: v.clone() for k, v in model.module.state_dict().items()}
     trainer = Trainer(model, losses.Factory().factory(model.head_metas),
                       configured(OptimizeFactory(), settings), '/dev/null')

@@ -46,6 +46,7 @@ from openpifpaf_tpu_torch.predictor import Predictor
 
 from test_torch_port_coco import assert_images_close, assert_meta_close
 from test_torch_port_encoder import assert_targets_equal
+from test_torch_port_encoder import numpy_painters  # noqa: F401  (fixture)
 from test_torch_port_models import NARROW
 from test_torch_port_tracking_model import random_tracking_variables
 

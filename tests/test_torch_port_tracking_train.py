@@ -42,6 +42,7 @@ from openpifpaf_tpu_torch.plugins.toykp import ToyKpDataset
 from openpifpaf_tpu_torch.training import OptimizeFactory, Trainer
 
 from test_torch_port_encoder import assert_targets_equal
+from test_torch_port_encoder import numpy_painters  # noqa: F401  (fixture)
 from test_torch_port_tracking_model import (flax_narrow_tracking,
                                             port_narrow_tracking)
 from test_torch_port_train import F32_EPS, configured
@@ -238,6 +239,7 @@ def test_two_train_steps(samples, tmp_path):
                                         'batch_stats': state.batch_stats})
 
     model = port_narrow_tracking(jax_checkpoint.flatten_tree(variables))
+    model.fused_train = False   # canonical against canonical, as JAX's
     before = {k: v.clone() for k, v in model.module.state_dict().items()}
     trainer = Trainer(model, losses.Factory().factory(model.head_metas),
                       configured(OptimizeFactory(), SGD),

@@ -98,6 +98,7 @@ def test_two_train_steps(name, tmp_path):
 
     _, variables, _ = flax_narrow()
     model = port_narrow(jax_checkpoint.flatten_tree(variables))
+    model.fused_train = False   # canonical against canonical, as JAX's
     before = {k: v.clone() for k, v in model.module.state_dict().items()}
     trainer = Trainer(model, losses.Factory().factory(model.head_metas),
                       configured(OptimizeFactory(), settings),

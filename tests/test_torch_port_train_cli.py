@@ -67,8 +67,8 @@ def test_cli_train_and_resume(trained):
 
 
 def test_cli_refuses_unported_flags_and_defaults_to_the_card():
-    result = run_cli(['--basenet=shufflenetv2k16', '--orbax'])
-    assert result.returncode != 0 and '--orbax' in result.stderr
+    result = run_cli(['--basenet=shufflenetv2k16', '--ddp'])
+    assert result.returncode != 0 and '--ddp' in result.stderr
     if torch.cuda.is_available():
         pytest.skip('checks the default device without CUDA')
     with pytest.raises(RuntimeError, match='CUDA'):

@@ -37,6 +37,7 @@ from openpifpaf_tpu_torch.plugins.wholebody import constants as wb
 
 import drift_harness as dh
 from test_torch_port_encoder import assert_targets_equal
+from test_torch_port_encoder import numpy_painters  # noqa: F401  (fixture)
 
 SIZE = 97
 
