@@ -221,18 +221,34 @@ Phases, in order; any failure raises and exits non-zero:
    ``openpifpaf_tpu_torch::pair_chain`` at the export's three chain
    inputs held to its CPU implementation (on the card's tensors, and on
    the CPU for image 0) and timed;
-18. a ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
+18. show: the decoders' debug hooks (``--debug-indices``) on the card,
+   each view's render step replaced by a recorder of the array it is
+   handed (the card's machine has no matplotlib): (a) one served image's
+   sn2k16 fields decoded by ``CifCaf.__call__``, K1 calls, host syncs and
+   CUDA-synchronizing calls per call with the indices empty (equal to a
+   plain ``batch_fields``) and set to ``cif:0 caf:0 cifhr:0 seeds`` (one K1
+   call and four read-backs more), the arrays held to the CPU hook's on
+   the same fields (``show_cifcaf_hook``); (b) two frames of the tracking
+   stream through ``VideoProcessor`` with ``tcaf:0``, the TCAF arrays held
+   to the CPU ``TrackingPose``'s hook; (c) K1 held to its plain version
+   and timed at the hook's inputs; (d) ``predict -o``, ``video
+   --video-output`` and ``logs`` in this process: without matplotlib each
+   raises naming it and writes nothing, with it each writes its files;
+   the phase's and the script's seconds;
+19. a ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
    serve phase, ``eval_launches`` from the multi-scale eval,
    ``dense_launches``, ``wholebody_launches``, ``tracking_launches``,
    ``detect_launches``, ``backbones_launches`` (per served backbone),
-   ``coco_launches`` (per data module), ``posetrack_launches`` and (K2)
-   ``export_launches`` from those phases' runs, ``wholebody``,
+   ``coco_launches`` (per data module), ``posetrack_launches``,
+   ``show_launches`` (K1 per ``__call__``: plain, indices empty and set)
+   and (K2) ``export_launches`` from those phases' runs, ``wholebody``,
    ``tracking``, ``detect``, ``detect_cifar10``, ``backbones``, ``coco``,
-   ``posetrack`` and ``export`` its hold and times at those shapes), the
-   card's name and power limit, then the last line ``{"ok": true,
-   "device": {...}}``.
+   ``posetrack``, ``show`` and ``export`` its hold and times at those
+   shapes), the script's seconds, the card's name and power limit, then
+   the last line ``{"ok": true, "device": {...}}``.
 
-It imports only the port, torch and numpy.
+It imports only the port, torch and numpy, and matplotlib where it can be
+imported (the show phase).
 """
 
 from __future__ import annotations
@@ -5171,6 +5187,366 @@ def export_phase(port, card: str, tmp: str) -> dict:
     return dict(launches=launches, k2=k2)
 
 
+# ------------------------------------------------------------------- show
+# the show phase: the decoders' debug hooks on the card, their arrays held
+# to the CPU's; K1 at the hook's inputs; the rendering CLIs' refusal (or
+# their files) where matplotlib is absent (or present)
+SHOW_INDICES = ['cif:0', 'caf:0', 'cifhr:0', 'seeds']
+SHOW_VIEWS = ('Cif', 'Caf', 'CifHr', 'Seeds', 'Tcaf')
+SHOW_FRAMES = 2
+SHOW_TURNS = 3
+SHOW_IMAGE = (480, 640)     # a PNG's (H, W) for the rendering CLIs
+
+
+@contextlib.contextmanager
+def recorded_views(visualizer):
+    """Each view's render step replaced by a recorder of the array it is
+    handed (the card's machine has no matplotlib): name -> arrays."""
+    log = {name: [] for name in SHOW_VIEWS}
+    saved = {name: getattr(visualizer, name).predicted for name in SHOW_VIEWS}
+
+    def recorder(name):
+        def predicted(self, array, *args, **kwargs):
+            log[name].append(np.array(array))
+        return predicted
+
+    try:
+        for name in SHOW_VIEWS:
+            getattr(visualizer, name).predicted = recorder(name)
+        yield log
+    finally:
+        for name, fn in saved.items():
+            getattr(visualizer, name).predicted = fn
+
+
+def syncing_calls(fn) -> int:
+    """The CUDA-synchronizing calls ``fn()`` makes, counted by CUDA's sync
+    debug mode set to warn."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    return sum('synchroniz' in str(w.message) for w in caught)
+
+
+def hook_counts(port, fn) -> dict:
+    """K1 calls, host syncs (``common.HOST_SYNCS``) and CUDA-synchronizing
+    calls of ``fn()``, the counts set to 0 just before."""
+    port.cif_hr.KERNEL_LAUNCHES = port.common.HOST_SYNCS = 0
+    syncing = syncing_calls(fn)
+    return {'k1': port.cif_hr.KERNEL_LAUNCHES,
+            'host_syncs': port.common.HOST_SYNCS, 'cuda_syncs': syncing}
+
+
+def relative_difference(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f'shapes {got.shape} and {want.shape}')
+    return float((np.abs(got - want) / np.maximum(1.0, np.abs(want))).max())
+
+
+def show_cifcaf_hook(port, served) -> dict:
+    """(a) One served image's sn2k16 fields (641 px, bias-shifted heads)
+    decoded by ``CifCaf.__call__`` on the card, ``SHOW_TURNS`` times: K1
+    calls and host syncs with ``SHOW_INDICES`` empty (equal to a plain
+    ``batch_fields`` decode's, and no more CUDA-synchronizing calls) and
+    set (one K1 call and four read-backs more); the arrays handed to the
+    views held to the CPU hook's on the same fields with the card's
+    configuration (f32 CifHr profiles): ``cif_act`` and ``caf_act`` within
+    ``FRONT_TOL``, the CifHr map within K1's 2e-5, the seeds against the
+    CPU's ``seeds.select`` on the card's inputs within ``FRONT_TOL`` (the
+    order of near-equal seeds is decided by ulps, ``hold_front_ends``).
+    Returns the counts and K1's inputs in the hook."""
+    from openpifpaf_tpu_torch import visualizer
+
+    predictor = served['predictor']
+    decoder = predictor.decoder
+    if not isinstance(decoder, port.decoder.CifCaf):
+        raise AssertionError(f'the served decoder is {type(decoder)}')
+    x, _ = predictor.preprocess(served['images'][:1])
+    with torch.no_grad():
+        fields = [f[0] for f in predictor.model(x)]
+    side = (SERVE_EDGE - 1) // 16 + 1
+    if [tuple(f.shape) for f in fields] != [(17, 5, side, side),
+                                            (19, 9, side, side)]:
+        raise AssertionError(f'fields {[tuple(f.shape) for f in fields]}')
+
+    # the plain decode and __call__ in turns: the CUDA-synchronizing calls
+    # vary by one between calls of either (the caching allocator), so the
+    # least of SHOW_TURNS is kept; the port's counters do not vary
+    visualizer.Base.set_all_indices([])
+    turns = {'plain': [], 'indices empty': [], 'indices set': []}
+    for _ in range(SHOW_TURNS):
+        turns['plain'].append(hook_counts(port, lambda: decoder.batch_fields(
+            [f[None] for f in fields])))
+        turns['indices empty'].append(hook_counts(port,
+                                                  lambda: decoder(fields)))
+    visualizer.Base.set_all_indices(SHOW_INDICES)
+    try:
+        with recorded_views(visualizer) as views:
+            for _ in range(SHOW_TURNS):
+                turns['indices set'].append(hook_counts(
+                    port, lambda: decoder(fields)))
+        # again, keeping what the hook hands K1 and seeds.select
+        captured, selected = [], []
+        launch, select = port.cif_hr.cif_hr_accumulate, port.ops.seeds.select
+
+        def spy(*args, **kwargs):
+            captured.append(([a.clone() for a in args], dict(kwargs)))
+            return launch(*args, **kwargs)
+
+        def spy_select(*args, **kwargs):
+            out = select(*args, **kwargs)
+            selected.append((to_cpu_obj(args), dict(kwargs), to_cpu_obj(out)))
+            return out
+
+        port.cif_hr.cif_hr_accumulate = spy
+        port.ops.seeds.select = spy_select
+        try:
+            with recorded_views(visualizer):
+                decoder._debug_visualize([f[None] for f in fields])  # pylint: disable=protected-access
+        finally:
+            port.cif_hr.cif_hr_accumulate = launch
+            port.ops.seeds.select = select
+        cpu = port.decoder.CifCaf(decoder.cif_meta, decoder.caf_meta,
+                                  device='cpu')
+        cpu.config_for = decoder.config_for   # the card's: f32 profiles
+        with recorded_views(visualizer) as cpu_views:
+            cpu._debug_visualize([f.cpu()[None] for f in fields])  # pylint: disable=protected-access
+    finally:
+        visualizer.Base.set_all_indices([])
+
+    print('show (a) CifCaf.__call__ on one served image, per call, '
+          f'{SHOW_TURNS} turns: ' + '; '.join(
+              f'{k}: K1 {[c["k1"] for c in cs]}, host syncs '
+              f'{[c["host_syncs"] for c in cs]}, CUDA-synchronizing calls '
+              f'{[c["cuda_syncs"] for c in cs]}' for k, cs in turns.items()),
+          flush=True)
+    counts = {k: dict(cs[0], cuda_syncs=min(c['cuda_syncs'] for c in cs))
+              for k, cs in turns.items()}
+    if any(dict(c, cuda_syncs=0) != dict(cs[0], cuda_syncs=0)
+           for cs in turns.values() for c in cs):
+        raise AssertionError(f'the counters vary between calls: {turns}')
+    plain, empty, full = (counts[k] for k in ('plain', 'indices empty',
+                                              'indices set'))
+    if ((empty['k1'], empty['host_syncs']) != (plain['k1'],
+                                               plain['host_syncs'])
+            or empty['cuda_syncs'] > plain['cuda_syncs']):
+        raise AssertionError(f'the hook costs without indices: {counts}')
+    if (full['k1'], full['host_syncs']) != (plain['k1'] + 1,
+                                            plain['host_syncs'] + 4):
+        raise AssertionError(f'the hook with indices: {counts}')
+    if [len(views[k]) for k in SHOW_VIEWS] != [SHOW_TURNS] * 4 + [0]:
+        raise AssertionError(f'views handed {[len(v) for v in views.values()]}')
+    if len(captured) != 1 or len(selected) != 1:
+        raise AssertionError(f'the hook ran K1 {len(captured)} and '
+                             f'seeds.select {len(selected)} times')
+    report = {}
+    for name, limit in (('Cif', FRONT_TOL), ('Caf', FRONT_TOL),
+                        ('CifHr', 2e-5)):
+        got, want = views[name][0], cpu_views[name][0]
+        d = (relative_difference(got, want) if limit == FRONT_TOL
+             else float(np.abs(got - want).max()))
+        report[name] = d
+        if not (np.isfinite(got).all() and d <= limit):
+            raise AssertionError(f'show (a) {name}: card and CPU differ by '
+                                 f'{d} (limit {limit})')
+    args, kwargs, out = selected[0]
+    want = port.ops.seeds.select(*args, **kwargs)
+    report['Seeds'] = worst_difference(out, want, 'show (a) seeds')
+    stacked = np.stack([out.v[0], out.f[0].float(), out.x[0], out.y[0],
+                        out.s[0]], axis=-1)
+    if not (report['Seeds'] <= FRONT_TOL
+            and np.array_equal(views['Seeds'][0], stacked)):
+        raise AssertionError(f'show (a) seeds: {report["Seeds"]}')
+    n_seeds = int((views['Seeds'][0][:, 0] > 0).sum())
+    print(f'show (a) arrays handed to the views, card vs CPU hook on the '
+          f'same fields: cif {views["Cif"][0].shape} {report["Cif"]:.3e}, '
+          f'caf {views["Caf"][0].shape} {report["Caf"]:.3e} (max |d| / '
+          f'max(1, |value|), limit {FRONT_TOL}), CifHr '
+          f'{views["CifHr"][0].shape} {report["CifHr"]:.3e} (max |d|, limit '
+          f'2e-5), seeds ({n_seeds} valid of {len(stacked)}) against the '
+          f'CPU select on the card\'s inputs {report["Seeds"]:.3e}; the CPU '
+          f'hook found {int((cpu_views["Seeds"][0][:, 0] > 0).sum())} seeds',
+          flush=True)
+    return dict(counts=counts, captured=captured[0], report=report)
+
+
+def show_tcaf_hook(port) -> dict:
+    """(b) ``SHOW_FRAMES`` frames of the tracking phase's stream
+    (tshufflenetv2k16, bias-shifted, 641 px) through ``VideoProcessor``
+    with the indices empty and then with ``tcaf:0``: K1 calls equal (the
+    CifCaf hook is not on ``TrackingPose``'s path), one host sync more per
+    frame; each recorded TCAF array held to the CPU ``TrackingPose``'s
+    hook on the same field within ``FRONT_TOL``."""
+    from openpifpaf_tpu_torch import visualizer
+
+    model = tracking_model(port)
+    processor = port.video.VideoProcessor(model, long_edge=SERVE_EDGE)
+    decoder = processor.decoder
+    frames = track_frames(3, SHOW_FRAMES)
+    fields, hook = [], decoder._debug_visualize_tcaf  # pylint: disable=protected-access
+
+    def keep(tcaf_field):
+        fields.append(tcaf_field.clone())
+        return hook(tcaf_field)
+
+    def stream():
+        decoder.reset()
+        processor.prev_features = None
+        for frame in frames:
+            processor.process(frame)
+
+    stream()    # warm-up
+    counts = {'indices empty': hook_counts(port, stream)}
+    visualizer.Base.set_all_indices(['tcaf:0'])
+    decoder._debug_visualize_tcaf = keep  # pylint: disable=protected-access
+    try:
+        with recorded_views(visualizer) as views:
+            counts['tcaf:0'] = hook_counts(port, stream)
+        cpu = port.decoder.TrackingPose(decoder.cif_meta, decoder.caf_meta,
+                                        decoder.tcaf_meta, device='cpu')
+        with recorded_views(visualizer) as cpu_views:
+            for field in fields:
+                cpu._debug_visualize_tcaf(field.cpu())  # pylint: disable=protected-access
+    finally:
+        visualizer.Base.set_all_indices([])
+        del decoder._debug_visualize_tcaf
+    empty, full = counts['indices empty'], counts['tcaf:0']
+    diffs = [relative_difference(g, w)
+             for g, w in zip(views['Tcaf'], cpu_views['Tcaf'], strict=True)]
+    print(f'show (b) {SHOW_FRAMES} frames through VideoProcessor: '
+          + '; '.join(f'{k}: K1 {c["k1"]}, host syncs {c["host_syncs"]}, '
+                      f'CUDA-synchronizing calls {c["cuda_syncs"]}'
+                      for k, c in counts.items())
+          + f'; TCAF arrays {[a.shape for a in views["Tcaf"]]} card vs CPU '
+          f'hook {[f"{d:.3e}" for d in diffs]} (limit {FRONT_TOL})',
+          flush=True)
+    if (full['k1'] != empty['k1']
+            or full['host_syncs'] != empty['host_syncs'] + SHOW_FRAMES):
+        raise AssertionError(f'show (b) counts: {counts}')
+    if len(diffs) != SHOW_FRAMES or [len(v) for v in views.values()] != [
+            0, 0, 0, 0, SHOW_FRAMES] or not max(diffs) <= FRONT_TOL:
+        raise AssertionError(f'show (b): TCAF arrays {diffs}')
+    return dict(counts=counts, max_diff=max(diffs))
+
+
+def show_renders(port, served, tmp: str) -> dict:
+    """(d) ``predict.main(... -o)``, ``video.main(... --video-output)`` and
+    ``logs.main`` in this process.  Without matplotlib each must raise an
+    error naming it before it builds a model or reads a file (the
+    checkpoint path given does not exist), and write nothing; with it,
+    each writes its files, the images at the source's aspect ratio."""
+    from openpifpaf_tpu_torch import logs, predict
+    from openpifpaf_tpu_torch.models import checkpoint
+
+    images_dir = os.path.join(tmp, 'images')
+    out = os.path.join(tmp, 'rendered')
+    os.makedirs(images_dir)
+    os.makedirs(out)
+    rng = np.random.default_rng(11)
+    for i in range(2):
+        port.image_io.write_png(os.path.join(images_dir, f'{i:03d}.png'),
+                                rng.integers(0, 256, (*SHOW_IMAGE, 3),
+                                             dtype=np.uint8))
+    images = sorted(os.path.join(images_dir, n) for n in os.listdir(images_dir))
+    log = os.path.join(tmp, 'train.log')
+    with open(log, 'w') as f:
+        for i in range(4):
+            f.write(json.dumps({
+                'type': 'train', 'epoch': 0, 'batch': i, 'n_batches': 4,
+                'time': 0.1, 'lr': 1e-3, 'loss': 2.0 - 0.1 * i,
+                'head_losses': [1.0 - 0.1 * i, 1.0]}) + '\n')
+        f.write(json.dumps({'type': 'train-epoch', 'epoch': 1, 'loss': 1.9,
+                            'time': 0.4}) + '\n')
+    try:
+        import matplotlib.pyplot  # noqa: F401  pylint: disable=import-outside-toplevel,unused-import
+        importable = True
+    except ImportError as e:
+        importable = False
+        reason = str(e)
+    model_path = os.path.join(tmp, 'sn2k16.npz')
+    if importable:
+        model = served['predictor'].model
+        checkpoint.save(model_path, variables=port.models.to_jax_variables(
+            model.module.state_dict()), head_metas=model.head_metas,
+            basenet_name='shufflenetv2k16', base_stride=16)
+    runs = {
+        'predict -o': lambda: predict.main(
+            [*images, f'--checkpoint={model_path}', '-o', out,
+             f'--json-output={out}', '-q']),
+        'video --video-output': lambda: port.video.main(
+            ['--source', images_dir, f'--checkpoint={model_path}',
+             '--long-edge=641', '--video-output', out, '-q']),
+        'logs': lambda: logs.main([log]),
+    }
+    result = {}
+    for name, run in runs.items():
+        start = time.perf_counter()
+        if importable:
+            if run() != 0:
+                raise AssertionError(f'{name}: non-zero exit')
+            result[name] = 'written'
+        else:
+            try:
+                run()
+            except ImportError as e:
+                if 'matplotlib' not in str(e):
+                    raise
+                result[name] = f'{type(e).__name__}: {e}'
+            else:
+                raise AssertionError(f'{name} ran without matplotlib')
+        print(f'show (d) {name}: {result[name]} '
+              f'({time.perf_counter() - start:.2f} s)', flush=True)
+    written = sorted(os.listdir(out))
+    if not importable:
+        if written or os.path.exists(log + '.png'):
+            raise AssertionError(f'files written without matplotlib: '
+                                 f'{written}')
+        print(f'show (d) matplotlib is not importable here ({reason}): '
+              f'each render raised before any work and wrote no file',
+              flush=True)
+        return result
+    import matplotlib.image  # pylint: disable=import-outside-toplevel
+
+    want = ([os.path.basename(p) + '.predictions.jpg' for p in images]
+            + [os.path.basename(p) + '.predictions.json' for p in images]
+            + ['000000.jpg', '000001.jpg'])
+    if written != sorted(want) or not os.path.exists(log + '.png'):
+        raise AssertionError(f'rendered {written}')
+    for name in written:
+        if name.endswith('.jpg'):
+            h, w = matplotlib.image.imread(os.path.join(out, name)).shape[:2]
+            if abs(w / h - SHOW_IMAGE[1] / SHOW_IMAGE[0]) > 0.01:
+                raise AssertionError(f'{name}: {w}x{h}')
+    print(f'show (d) written: {written} and {os.path.basename(log)}.png',
+          flush=True)
+    return result
+
+
+def show_phase(port, card: str, served, tmp: str) -> dict:
+    """Show: (a) the CifCaf hook, (b) the TCAF hook, (c) K1 held and timed
+    at the hook's inputs, (d) the rendering CLIs."""
+    start = time.perf_counter()
+    cifcaf = show_cifcaf_hook(port, served)
+    tcaf = show_tcaf_hook(port)
+    args, kwargs = cifcaf['captured']
+    k1 = measure_cif_hr(port.cif_hr, 'show hook', args, kwargs)
+    k1['shape'] = (f'(B, F, N) {tuple(args[0].shape)} -> '
+                   f'{tuple(kwargs["out_hw"])}')
+    renders = show_renders(port, served, tmp)
+    seconds = time.perf_counter() - start
+    print(f'show phase: {seconds:.1f} s ({card})', flush=True)
+    return dict(k1=k1, counts=cifcaf['counts'], tcaf=tcaf, renders=renders,
+                seconds=seconds)
+
+
 class _Port:
     """The port's modules, imported after the card check."""
 
@@ -5291,6 +5667,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase('export')
         exported = export_phase(port, card, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase('show')
+        shown = show_phase(port, card, served, tmp)
     k1_backbones = [r['k1'] for r in backbones['served'].values()]
     max_err = max([max_err, wholebody['k1']['max_abs_err'],
                    tracked['k1']['max_abs_err'],
@@ -5299,7 +5678,7 @@ def main() -> int:
                   + [r['max_abs_err'] for r in k1_backbones]
                   + [r['max_abs_err'] for r in (coco['k1'], coco['det']['k1'],
                                                 coco['crowd']['k1'],
-                                                posetrack['k1'])]
+                                                posetrack['k1'], shown['k1'])]
                   + [r['max_abs_err'] for kind, r in evaluated['checks']
                      if kind == 'cif_hr'])
     k2_err = max([k2_err, wholebody['k2']['max_abs_err'],
@@ -5342,6 +5721,8 @@ def main() -> int:
                  'crowdpose': at_new_shape(coco['crowd']['k1'])},
         'posetrack_launches': posetrack['counts']['k1'],
         'posetrack': at_new_shape(posetrack['k1']),
+        'show_launches': {k: c['k1'] for k, c in shown['counts'].items()},
+        'show': at_new_shape(shown['k1']),
         'max_abs_err': max_err, 'max_abs_diff': max_err,
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
@@ -5372,6 +5753,8 @@ def main() -> int:
         'ms': k2_main['ms'], 'plain_ms': k2_main['plain_ms'],
         'bound_ms': k2_main['bound_ms'], 'bound_by': k2_main['bound_by'],
         'library_ms': None}]}), flush=True)
+    print(f'chip_smoke.py: {time.perf_counter() - _START:.1f} s, the show '
+          f'phase {shown["seconds"]:.1f} s ({card})', flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

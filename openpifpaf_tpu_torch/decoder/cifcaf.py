@@ -8,7 +8,9 @@ the JAX package's defaults (``cifcaf.py:28-46``) with the same CLI flags
 ``--dense-connections``, the decode runs over the concatenated sparse and
 dense skeletons, the dense edges' confidences scaled by the flag's value
 (``cifcaf.py:49-60, 131-149``); with the flag at 0 the dense head is
-ignored.
+ignored.  The single-image ``__call__`` renders the debug views of
+``--debug-indices`` first (``cifcaf.py:234-295``); ``batch_fields``, the
+path of ``Predictor``, renders none, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,11 +24,12 @@ import numpy as np
 import torch
 
 from .decoder import Decoder
-from .. import headmeta
+from .. import headmeta, visualizer
 from ..annotation import Annotation
 from ..device import resolve_device
+from ..models.heads import split_fields
 from ..ops import CifCafConfig, make_batch_decoder
-from ..ops import caf_scored, cif_hr, growth, nms, seeds
+from ..ops import caf_scored, cif_hr, common, growth, nms, pipeline, seeds
 
 LOG = logging.getLogger(__name__)
 
@@ -244,6 +247,53 @@ class CifCaf(Decoder):
                 for i in range(decoded_np.valid.shape[0])]
 
     def __call__(self, fields) -> List[Annotation]:
-        """Decode one image: fields = [cif (F,5,H,W), caf (E,9,H,W)]."""
-        return self.batch_fields(
-            [torch.as_tensor(np.asarray(f))[None] for f in fields])[0]
+        """Decode one image: fields = [cif (F,5,H,W), caf (E,9,H,W)],
+        tensors on any device or arrays."""
+        batched = [(f if isinstance(f, torch.Tensor)
+                    else torch.as_tensor(np.asarray(f)))[None] for f in fields]
+        self._debug_visualize(batched)
+        return self.batch_fields(batched)[0]
+
+    @torch.no_grad()
+    def _debug_visualize(self, fields) -> None:
+        """The debug views of ``--debug-indices`` for one image's batched
+        fields (JAX ``cifcaf.py:240-295``): the activated CIF and CAF
+        fields, the CifHr map (K1 on the card) and the seeds, computed on
+        the decoder's device and read back once per array handed to a
+        visualizer (``common.read_back``).  With no index set it returns
+        before it touches a tensor: no launch, no host sync."""
+        if not visualizer.Base.all_indices:
+            return
+        cif_fields = torch.as_tensor(fields[self.cif_meta.head_index],
+                                     dtype=torch.float32, device=self.device)
+        caf_fields = torch.as_tensor(self.caf_fields(fields),
+                                     dtype=torch.float32, device=self.device)
+        h, w = cif_fields.shape[-2:]
+        stride = self.cif_meta.stride
+        config = self.config_for(((h - 1) * stride + 1, (w - 1) * stride + 1))
+
+        cif = split_fields(cif_fields, self.cif_meta)
+        x_px, y_px, scale_px = pipeline.cif_positions(cif, stride)
+        visualizer.Cif(self.cif_meta).predicted(common.read_back(torch.stack([
+            cif.conf[0], cif.vec[0, :, 0, 0], cif.vec[0, :, 0, 1],
+            cif.spread[0, :, 0], cif.scale[0, :, 0]], dim=1)))
+
+        caf = split_fields(caf_fields, self.caf_meta)
+        visualizer.Caf(self.caf_meta).predicted(common.read_back(torch.stack([
+            caf.conf[0], caf.vec[0, :, 0, 0], caf.vec[0, :, 0, 1],
+            caf.vec[0, :, 1, 0], caf.vec[0, :, 1, 1],
+            caf.spread[0, :, 0], caf.spread[0, :, 1],
+            caf.scale[0, :, 0], caf.scale[0, :, 1]], dim=1)))
+
+        hr = cif_hr.accumulate(cif.conf, x_px, y_px, scale_px,
+                               out_hw=config.hr_hw, config=config.cifhr)
+        visualizer.CifHr(self.cif_meta).predicted(
+            common.read_back(hr[0]), spacing=config.cifhr.spacing)
+
+        sds = seeds.select(cif.conf, x_px, y_px, scale_px, hr,
+                           hr_spacing=config.cifhr.spacing,
+                           config=config.seeds)
+        visualizer.Seeds(field_names=self.cif_meta.keypoints).predicted(
+            common.read_back(torch.stack([
+                sds.v[0], sds.f[0].float(), sds.x[0], sds.y[0], sds.s[0]],
+                dim=-1)))

@@ -16,7 +16,6 @@ import argparse
 from typing import List
 
 import numpy as np
-import torch
 
 from .cifcaf import CifCaf
 from .decoder import Decoder
@@ -120,8 +119,7 @@ class PoseSimilarity(Decoder):
         """Decode one frame, ``fields`` = [cif (F, 5, H, W), caf (E, 9, H,
         W)] (tensors or arrays), and link its poses to the running
         tracks."""
-        annotations = self.cifcaf.batch_fields(
-            [torch.as_tensor(f)[None] for f in fields])[0]
+        annotations = self.cifcaf(fields)
         curr_xyv = (np.stack([a.data for a in annotations])
                     if annotations else
                     np.zeros((0, self.cif_meta.n_fields, 3), np.float32))

@@ -9,8 +9,8 @@ there on the card), and the association (``ops/tracking.py``) runs on the
 same device with one readback, the match.  The ids, the carry-over of
 recently lost tracks into free pose slots (``forget_after``), the
 ``sequence_id`` reset and ``batch_fields`` over the pairs of a batch stay
-on the host: they are sequential across frames.  The TCAF debug view
-(``--debug-indices tcaf:N``) waits for the visualizers.
+on the host: they are sequential across frames.  With ``--debug-indices``
+set, ``__call__`` renders the TCAF debug view first (``:107-127``).
 """
 
 from __future__ import annotations
@@ -25,9 +25,10 @@ import torch
 
 from .cifcaf import CifCaf
 from .decoder import Decoder
-from .. import headmeta
+from .. import headmeta, visualizer
 from ..annotation import Annotation
-from ..ops import TrackingConfig, tracking
+from ..models.heads import split_fields
+from ..ops import TrackingConfig, common, tracking
 from ..signal_ import Signal
 
 LOG = logging.getLogger(__name__)
@@ -103,6 +104,21 @@ class TrackingPose(Decoder):
             min_match_score=self.track_threshold,
             max_tracks=self.cifcaf.max_poses)
 
+    @torch.no_grad()
+    def _debug_visualize_tcaf(self, tcaf_field: torch.Tensor) -> None:
+        """The TCAF debug view of ``--debug-indices`` (JAX
+        ``tracking_pose.py:107-127``): the activated field on the device,
+        read back once.  With no index set it returns before it touches
+        the tensor."""
+        if not visualizer.Base.all_indices:
+            return
+        t = split_fields(tcaf_field, self.tcaf_meta)
+        visualizer.Tcaf(self.tcaf_meta).predicted(common.read_back(
+            torch.stack([t.conf, t.vec[:, 0, 0], t.vec[:, 0, 1],
+                         t.vec[:, 1, 0], t.vec[:, 1, 1],
+                         t.spread[:, 0], t.spread[:, 1],
+                         t.scale[:, 0], t.scale[:, 1]], dim=1)))
+
     def _decode_frame(self, cif_field, caf_field):
         """One frame's decode on the device: ``DecodedPoses`` of tensors
         without the batch axis."""
@@ -149,6 +165,7 @@ class TrackingPose(Decoder):
         caf_pair = torch.as_tensor(fields[self.caf_meta.head_index])
         tcaf_field = torch.as_tensor(fields[self.tcaf_meta.head_index],
                                      dtype=torch.float32, device=self.device)
+        self._debug_visualize_tcaf(tcaf_field)
 
         if self.frame_number == 0 or self.prev_xyv is None:
             self._start_tracks(self._host(

@@ -9,13 +9,22 @@ from __future__ import annotations
 
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
 
 from .. import debug_checks
 
 # Host synchronizations of the decode: each iteration of a fixpoint loop
-# reads its convergence flag back to the host (``while_loop`` below).
+# reads its convergence flag back to the host (``while_loop`` below), and
+# each array a debug view reads back (``read_back``).
 HOST_SYNCS = 0
+
+
+def read_back(tensor: torch.Tensor) -> np.ndarray:
+    """``tensor`` as a numpy array on the host: one host sync, counted."""
+    global HOST_SYNCS
+    HOST_SYNCS += 1
+    return tensor.cpu().numpy()
 
 
 def while_loop(cond: Callable, body: Callable, state: Tuple[torch.Tensor, ...],

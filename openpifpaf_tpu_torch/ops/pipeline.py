@@ -67,10 +67,16 @@ class FrontEnd(NamedTuple):
     n_dropped_caf: torch.Tensor
 
 
-def _cell_grid(h: int, w: int, device):
+def cif_positions(cif, stride: int):
+    """(x_px, y_px, scale_px), each (B, F, H, W): the regressed target of
+    every CIF cell and its scale, in image pixels."""
+    h, w = cif.conf.shape[-2:]
+    device = cif.conf.device
     jj = torch.arange(h, dtype=torch.float32, device=device)[None, None, :, None]
     ii = torch.arange(w, dtype=torch.float32, device=device)[None, None, None, :]
-    return jj, ii
+    return ((ii + cif.vec[:, :, 0, 0]) * stride,
+            (jj + cif.vec[:, :, 0, 1]) * stride,
+            cif.scale[:, :, 0] * stride)
 
 
 def decode_front_end(cif_fields: torch.Tensor, caf_fields: torch.Tensor, *,
@@ -85,11 +91,7 @@ def decode_front_end(cif_fields: torch.Tensor, caf_fields: torch.Tensor, *,
     cif = split_fields(cif_fields, cif_meta)
     caf = split_fields(caf_fields, caf_meta)
 
-    h, w = cif.conf.shape[-2:]
-    jj, ii = _cell_grid(h, w, cif.conf.device)
-    x_px = (ii + cif.vec[:, :, 0, 0]) * stride
-    y_px = (jj + cif.vec[:, :, 0, 1]) * stride
-    scale_px = cif.scale[:, :, 0] * stride
+    x_px, y_px, scale_px = cif_positions(cif, stride)
 
     # 1) high-res confidence accumulation (the CUDA kernel on the card)
     hr, n_dropped_cif = cif_hr.accumulate(

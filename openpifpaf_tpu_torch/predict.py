@@ -4,15 +4,19 @@ Port of ``openpifpaf_tpu/predict.py:25-96``.  Reference parity:
 ``src/openpifpaf/predict.py:~30``: glob the images, run the ``Predictor``
 and write one ``<image>.predictions.json`` per image, poses and boxes
 mixed, with ``--json-output`` (a file, a directory, or beside the image
-when given without a value).  Images are read by ``image_io``: PNG always,
+when given without a value), and with ``-o/--image-output`` the image with
+its annotations drawn (``show``, matplotlib) as ``<image>.predictions.jpg``
+(JAX ``predict.py:72-93``).  Images are read by ``image_io``: PNG always,
 JPEG and BMP where PIL is importable.  Prediction runs on the card unless
-``--device cpu`` is given; without CUDA it raises.  Rendered image output
-(``-o/--image-output``) needs the visualizers, which are not ported.
+``--device cpu`` is given; without CUDA it raises.  Without matplotlib,
+``-o`` and ``--debug-indices`` raise before any prediction.  As in the JAX
+package, ``--debug-indices`` renders no decoder view here: ``Predictor``
+decodes through ``batch_fields``, which has no hook.
 
 Usage::
 
     python -m openpifpaf_tpu_torch.predict image.png \\
-        --checkpoint outputs/model.npz --json-output out/
+        --checkpoint outputs/model.npz --json-output out/ -o out/
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ import logging
 import os
 import sys
 
-from . import decoder, logger, models
+from . import decoder, logger, models, show, visualizer
+from .image_io import read_image
 from .predictor import Predictor
 
 LOG = logging.getLogger(__name__)
@@ -38,6 +43,8 @@ def cli(argv=None) -> argparse.Namespace:
     parser.add_argument('images', nargs='*', help='input images')
     parser.add_argument('--glob', default=None,
                         help='glob expression for input images')
+    parser.add_argument('-o', '--image-output', default=None, nargs='?',
+                        const=True, help='annotated image output')
     parser.add_argument('--json-output', default=None, nargs='?',
                         const=True, help='json output file or directory')
     parser.add_argument('--batch-size', dest='predictor_batch_size',
@@ -57,6 +64,8 @@ def cli(argv=None) -> argparse.Namespace:
                        help='compute in float32 instead of bfloat16')
     decoder.cli(parser)
     Predictor.cli(parser)
+    show.cli(parser)
+    visualizer.cli(parser)
     args = parser.parse_args(argv)
 
     if not args.checkpoint:
@@ -64,6 +73,8 @@ def cli(argv=None) -> argparse.Namespace:
     logger.configure(args)
     decoder.configure(args)
     Predictor.configure(args)
+    show.configure(args)
+    visualizer.configure(args)
     return args
 
 
@@ -84,6 +95,11 @@ def main(argv=None) -> int:
         LOG.error('no image files given')
         return 1
 
+    annotation_painter = None
+    if args.image_output is not None:
+        show.require_matplotlib()
+        annotation_painter = show.AnnotationPainter()
+
     predictor = Predictor(checkpoint=args.checkpoint, device=args.device,
                           bf16=args.bf16, norm=args.basenet_norm,
                           **models.network_options(args))
@@ -95,6 +111,13 @@ def main(argv=None) -> int:
             with open(json_out_name, 'w') as f:
                 json.dump([ann.json_data() for ann in pred], f)
             LOG.info('json output = %s', json_out_name)
+        if annotation_painter is not None:
+            image_out_name = out_name(args.image_output, meta['file_name'],
+                                      '.predictions.jpg')
+            with show.image_canvas(read_image(meta['file_name']),
+                                   image_out_name) as ax:
+                annotation_painter.annotations(ax, pred)
+            LOG.info('image output = %s', image_out_name)
     return 0
 
 

@@ -3,7 +3,10 @@
 Port of ``openpifpaf_tpu/train.py``: argparse over the ported subsystems'
 ``cli()`` hooks, data module, model and loss construction, and
 ``Trainer.loop``.  Training runs on the card unless ``--device cpu`` is
-given; without CUDA it raises.  The checkpoints are the JAX package's npz
+given; without CUDA it raises.  The ``visualizer`` flags (``--debug-indices``,
+``--save-all``) are parsed and configured as by the JAX train CLI
+(``train.py:53,63``), whose training path renders no view either; without
+matplotlib ``--debug-indices`` raises before training.  The checkpoints are the JAX package's npz
 format, which the port's ``Predictor`` and the JAX package both load.
 
 Usage::
@@ -22,7 +25,8 @@ import sys
 
 import torch
 
-from . import datasets, encoder, logger, losses, models, plugins
+from . import (datasets, encoder, logger, losses, models, plugins,
+               visualizer)
 from .device import resolve_device
 from .training import OptimizeFactory, Trainer
 
@@ -73,6 +77,7 @@ def cli(argv=None) -> argparse.Namespace:
     OptimizeFactory.cli(parser)
     Trainer.cli(parser)
     datasets.cli(parser)
+    visualizer.cli(parser)
     args = parser.parse_args(argv)
 
     refused = [f'--{flag} ({what})' for flag, what in NOT_PORTED.items()
@@ -88,6 +93,7 @@ def cli(argv=None) -> argparse.Namespace:
     OptimizeFactory.configure(args)
     Trainer.configure(args)
     datasets.configure(args)
+    visualizer.configure(args)
     if args.output is None:
         args.output = default_output_file(args)
     return args

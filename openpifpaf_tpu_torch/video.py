@@ -11,7 +11,11 @@ heads on the cached pair, and ``TrackingPose`` decodes and associates
 (K1 on the card).  The first frame pairs with itself.  A model without a
 TCAF head is tracked by ``PoseSimilarity``.  Runs on the card unless
 ``--device cpu`` is given; without CUDA it raises.  ``--video-output``
-and ``--show`` need the visualizers, which are not ported.
+writes each frame with its annotations drawn (``show``, matplotlib) as
+``NNNNNN.jpg`` (JAX ``video.py:200-227``); without matplotlib it and
+``--debug-indices`` raise before the first frame.  ``--show`` is parsed
+and has no effect, as in the JAX package (``video.py:171``, which
+``main`` never reads).
 
 Usage::
 
@@ -32,7 +36,7 @@ import time
 import torch
 
 from . import decoder as decoder_mod
-from . import headmeta, logger, models, transforms
+from . import headmeta, logger, models, show, transforms, visualizer
 from .decoder.pose_similarity import PoseSimilarity
 from .decoder.tracking_pose import TrackingPose
 from .image_io import SUFFIXES, read_image
@@ -135,8 +139,7 @@ def cli(argv=None) -> argparse.Namespace:
     parser.add_argument('--source', required=True,
                         help='image directory or glob of frames')
     parser.add_argument('--video-output', default=None, nargs='?', const=True,
-                        help='annotated output frames: not ported (needs '
-                             'the visualizers), refused')
+                        help='directory for annotated output frames')
     parser.add_argument('--json-output', default=None, nargs='?', const=True,
                         help='json-lines output file')
     parser.add_argument('--start-frame', default=0, type=int)
@@ -144,8 +147,7 @@ def cli(argv=None) -> argparse.Namespace:
     parser.add_argument('--max-frames', default=None, type=int)
     parser.add_argument('--long-edge', default=321, type=int)
     parser.add_argument('--show', default=False, action='store_true',
-                        help='live display: not ported (needs the '
-                             'visualizers), refused')
+                        help='parsed as by the JAX video CLI; no effect')
     parser.add_argument('--device', default=None,
                         help='torch device (default: the card; raises '
                              'without CUDA)')
@@ -165,23 +167,28 @@ def cli(argv=None) -> argparse.Namespace:
                        action='store_false',
                        help='compute in float32 instead of bfloat16')
     decoder_mod.cli(parser)
+    show.cli(parser)
+    visualizer.cli(parser)
     args = parser.parse_args(argv)
 
-    for flag, given in (('--video-output', args.video_output is not None),
-                        ('--show', args.show)):
-        if given:
-            raise NotImplementedError(
-                f'{flag} needs the visualizers, which are not ported to '
-                'the PyTorch package yet')
     if not args.checkpoint and not args.basenet:
         parser.error('either --checkpoint or --basenet must be given')
     logger.configure(args)
     decoder_mod.configure(args)
+    show.configure(args)
+    visualizer.configure(args)
+    if args.show:
+        LOG.warning('--show has no effect: no live display (as in the JAX '
+                 'video CLI)')
     return args
 
 
 def main(argv=None) -> int:
     args = cli(argv)
+    painter = None
+    if args.video_output is not None:
+        show.require_matplotlib()
+        painter = show.AnnotationPainter()
     head_metas = None
     if not args.checkpoint:
         from .plugins.posetrack import ToyKpSt  # pylint: disable=import-outside-toplevel
@@ -201,6 +208,13 @@ def main(argv=None) -> int:
         json_file = open(json_name, 'w')  # pylint: disable=consider-using-with
         LOG.info('json output: %s', json_name)
 
+    out_dir = None
+    if painter is not None:
+        out_dir = args.video_output if args.video_output is not True \
+            else str(args.source).rstrip('/*') + '.predictions'
+        os.makedirs(out_dir, exist_ok=True)
+        LOG.info('video output: %s', out_dir)
+
     n_frames = 0
     try:
         for frame_i, _, frame in FrameReader(args.source, args.start_frame,
@@ -215,6 +229,10 @@ def main(argv=None) -> int:
                     'frame': frame_i,
                     'predictions': [ann.json_data() for ann in preds],
                 }) + '\n')
+            if out_dir is not None:
+                with show.image_canvas(frame, os.path.join(
+                        out_dir, f'{frame_i:06d}.jpg')) as ax:
+                    painter.annotations(ax, preds)
     finally:
         if json_file is not None:
             json_file.close()

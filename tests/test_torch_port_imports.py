@@ -6,6 +6,9 @@
   modules included; PIL is reached only through ``importlib`` where the
   JAX package's behaviour needs it (``image_io``'s JPEG reader,
   ``transforms.JpegCompression``), never at import;
+- importing every module of the port loads no ``matplotlib``: the
+  rendering functions of ``show``, ``visualizer`` and ``logs`` import it
+  when they run, never at module level (the card's machine has none);
 - entry points (the predict CLI and the detection decoders among them)
   default to ``device='cuda'`` and raise without CUDA instead of falling
   back to the CPU;
@@ -88,7 +91,14 @@ def test_port_sources_found():
                  'models/converter.py', 'models/model_migration.py',
                  'migrate.py', 'export_program.py',
                  'export_onnx.py', 'export_coreml.py', 'onnx_native.py',
-                 'count_ops.py', 'encoder/native.py', 'profiler.py'):
+                 'count_ops.py', 'encoder/native.py', 'profiler.py',
+                 'show/__init__.py', 'show/canvas.py', 'show/painters.py',
+                 'show/animation_frame.py', 'show/cli.py',
+                 'visualizer/__init__.py', 'visualizer/base.py',
+                 'visualizer/cif.py', 'visualizer/caf.py',
+                 'visualizer/cifhr.py', 'visualizer/seeds.py',
+                 'visualizer/occupancy.py', 'visualizer/cifdet.py',
+                 'visualizer/tcaf.py', 'logs.py'):
         assert os.path.join(REPO, 'openpifpaf_tpu_torch', name) in files
     assert len(files) > 20
 
@@ -177,6 +187,46 @@ def test_import_loads_no_jax_and_builds_nothing():
         f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]\n'
         'assert not bad, bad\n'
         'assert not k._LIBS and native._LIB is None\n')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, '-c', code], check=True, env=env,
+                   cwd=REPO, timeout=120)
+
+
+def module_level_imports(path):
+    """The modules a source imports outside any function."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    nodes = list(tree.body)
+    while nodes:
+        node = nodes.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        nodes.extend(ast.iter_child_nodes(node))
+
+
+def test_import_loads_no_matplotlib():
+    """matplotlib is imported inside rendering functions only, and
+    importing every module of the port in a fresh interpreter loads
+    none of it."""
+    at_import = {os.path.relpath(p, REPO) for p in port_sources()
+                 if any(m.split('.')[0] == 'matplotlib'
+                        for m in module_level_imports(p))}
+    assert not at_import
+    code = (
+        'import importlib, pkgutil, sys\n'
+        'import openpifpaf_tpu_torch as port\n'
+        'names = [m.name for m in pkgutil.walk_packages(port.__path__, '
+        '"openpifpaf_tpu_torch.")]\n'
+        'for name in names:\n'
+        '    importlib.import_module(name)\n'
+        'assert len(names) > 100, len(names)\n'
+        'assert "openpifpaf_tpu_torch.logs" in sys.modules\n'
+        'bad = [m for m in sys.modules if m.split(".")[0] == "matplotlib"]\n'
+        'assert not bad, bad\n')
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, '-c', code], check=True, env=env,
                    cwd=REPO, timeout=120)

@@ -295,8 +295,12 @@ def test_predict_cli_matches_jax(png_images, tmp_path, monkeypatch):
 
 
 def test_predict_cli_refusals(capsys):
-    with pytest.raises(SystemExit):
-        port_predict.cli(['x.png', '--checkpoint=m.npz', '-o', 'out.jpg'])
+    """``-o`` (once refused) parses as JAX's; ``--checkpoint`` is
+    required."""
+    args = port_predict.cli(['x.png', '--checkpoint=m.npz', '-o', 'out.jpg'])
+    assert args.image_output == 'out.jpg'
+    assert port_predict.cli(['x.png', '--checkpoint=m.npz', '-o']) \
+        .image_output is True
     with pytest.raises(SystemExit):
         port_predict.cli(['x.png'])
     assert '--checkpoint' in capsys.readouterr().err

@@ -7,6 +7,8 @@
   gives the same fields within 1e-5 (f32, both canonical graphs); saved
   again by the JAX package, it loads into the port with the same weights.
 - Without ``--device`` and without CUDA the CLI raises.
+- Its json log through both packages' ``logs`` plots: the parsed series
+  equal, the PNGs byte-equal.
 """
 
 import json
@@ -18,9 +20,10 @@ import numpy as np
 import pytest
 import torch
 
+from openpifpaf_tpu import logs as jax_logs
 from openpifpaf_tpu import models as jax_models
 from openpifpaf_tpu.models import checkpoint as jax_checkpoint
-from openpifpaf_tpu_torch import models, train
+from openpifpaf_tpu_torch import logs, models, train
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -101,3 +104,18 @@ def test_checkpoint_round_trip(trained, tmp_path):
     for key, value in model.module.state_dict().items():
         assert torch.equal(again.module.state_dict()[key], value), key
 
+
+
+def test_cli_log_plots_match_jax(trained, tmp_path):
+    import matplotlib
+    matplotlib.use('Agg')
+
+    out, first, second = trained
+    assert first.returncode == second.returncode == 0, second.stderr
+    log = out + '.log'
+    assert logs.Plots([log]).datas == jax_logs.Plots([log]).datas
+    paths = [str(tmp_path / f'{name}.png') for name in ('jax', 'port')]
+    assert jax_logs.main([log, '-o', paths[0]]) == 0
+    assert logs.main([log, '-o', paths[1]]) == 0
+    with open(paths[0], 'rb') as f_jax, open(paths[1], 'rb') as f_port:
+        assert f_port.read() == f_jax.read()

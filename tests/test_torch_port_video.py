@@ -12,8 +12,9 @@
   files written with each of the five row filters, and on PIL's own
   files; JPEG goes through PIL when it is importable and raises a
   ``ValueError`` naming the decoder when it is not.
-- ``--video-output`` and ``--show`` raise ``NotImplementedError``, and the
-  CLI without CUDA and without ``--device`` raises.
+- ``--video-output`` and ``--show`` run on the tracking checkpoint (one
+  ``NNNNNN.jpg`` per frame; ``--show`` has no effect, as in the JAX video
+  CLI), and the CLI without CUDA and without ``--device`` raises.
 """
 
 import io
@@ -190,12 +191,29 @@ def test_other_formats(tmp_path, monkeypatch):
         image_io.read_png(buf.getvalue())
 
 
-def test_refused_flags_and_no_cuda(stream, monkeypatch):
+def test_refused_flags_and_no_cuda(stream, monkeypatch, tmp_path):
+    """``--video-output`` and ``--show``, once refused, now run (needs
+    matplotlib, Agg here), on two frames of 97 x 129 px: the stream's
+    49 px wide frames are too narrow for the painters' 8 pt text
+    (``test_torch_port_show.py``)."""
+    import matplotlib
+    matplotlib.use('Agg')
+
     checkpoint, frames, _ = stream
+    wide = tmp_path / 'frames'
+    wide.mkdir()
+    rng = np.random.default_rng(1)
+    for i in range(2):
+        image_io.write_png(str(wide / f'{i:03d}.png'), rng.integers(
+            0, 256, (97, 129, 3), dtype=np.uint8))
+    out = tmp_path / 'rendered'
+    assert video.main(['--source', str(wide), '--checkpoint', checkpoint,
+                       '--device', 'cpu', '--no-bf16', '--long-edge=129',
+                       '--video-output', str(out), '--show']) == 0
+    assert sorted(os.listdir(out)) == ['000000.jpg', '000001.jpg']
+    with PIL.Image.open(out / '000000.jpg') as im:
+        assert im.size == (129, 97)
     base = ['--source', frames, '--checkpoint', checkpoint]
-    for flag in (['--video-output', '/dev/null'], ['--show']):
-        with pytest.raises(NotImplementedError, match='visualizers'):
-            video.cli(base + ['--device', 'cpu'] + flag)
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA'):
         video.main(base + ['--max-frames', '1'])
