@@ -1,7 +1,8 @@
 """Drive the PyTorch port's predict, train, eval, tracking and detection
 paths on an NVIDIA card, with the dense-connection and 133-keypoint
 WholeBody configurations, every backbone of the registry, the
-COCO-format data modules and the PoseTrack training recipe.
+COCO-format data modules, the PoseTrack training recipe and the
+multi-GPU paths (``--ddp``, ``--dp-eval``, the banded CifHr).
 
 Usage (from the repository root, one CUDA card):
 
@@ -100,16 +101,16 @@ Phases, in order; any failure raises and exits non-zero:
    (129x9) heads, bias-shifted, bf16, at WHOLEBODY_BENCH.json's budgets
    (1024 seeds, 256 CAF candidates, 96 poses), with 1 and 2 placements per
    growth round: 3 chained batches of 8 at 641 px each (K1 and K2
-   counted), per-image ms, host syncs per batch and peak memory, each
-   run's first batch held to the CPU at the same m (the front end stage by
-   stage, the CPU back end on the card's front end by ``hold_at_budget``:
-   ``hold_wholebody_batch``), painted WholeBody
-   scenes, at three jitter draws, held with ``hold_card_to_cpu``; K1 at
+   counted), per-image ms, host syncs per batch and peak memory; K1 at
    F = 133 and K2 at sn2k30's three
    chains (C = 256, 512, 1024) held to their plain versions and timed on the
    inputs the main path handed them; then the train CLI on ``toywb``
    (sn2k16, one epoch of 16 images at 321 px) and the eval CLI on its
-   checkpoint;
+   checkpoint, and beside them each run's first batch held to the CPU at
+   the same m (the front end stage by stage, the CPU back end on the
+   card's front end by ``hold_at_budget``: ``hold_wholebody_batch``) and
+   painted WholeBody scenes, at three jitter draws, held with
+   ``hold_card_to_cpu``;
 12. tracking: (a) the temporal association at the budgets (96 x 96
    poses, 128 TCAF candidates per keypoint type, a jittered painted crowd)
    on the card under CUDA's sync debug mode set to raise, held to the
@@ -235,16 +236,44 @@ Phases, in order; any failure raises and exits non-zero:
    --video-output`` and ``logs`` in this process: without matplotlib each
    raises naming it and writes nothing, with it each writes its files;
    the phase's and the script's seconds;
-19. a ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
+19. parallel: multi-GPU on the card's one card (NCCL takes a group of one
+   rank there; groups of two and four ranks share cuda:0 over gloo, the
+   ranks started by ``parallel.run_group`` with the spawn method): (a) the
+   train CLI with ``--ddp`` at a world of one (NCCL, torchrun's env://
+   variables) beside the same CLI without it, sn2k16, one toykp epoch of
+   16 images at 385 px, batch 8, bf16, deterministic cuDNN and cuBLAS: the
+   checkpoints within 1e-6 of scale; (b) one SGD step of full-width
+   sn2k16, f32 with TF32 off, 8 toykp images at 385 px split 4 + 4 over
+   two ranks, against one rank on all 8 (losses and running statistics
+   within 1e-4, gradients within 3 times the distance between two
+   summation orders of the one-rank step) and against the float64 step
+   (gradients and the step's change within 3 times the one-rank f32
+   steps' own distance from it),
+   and each ablation (per-rank BatchNorm statistics, per-rank loss means)
+   failing that hold; (c) the eval CLI on serve's bias-shifted sn2k16 as a
+   checkpoint, toykp's 8 eval images at 641 px in batches of 4: the single
+   process, ``--dp-eval`` at one rank (NCCL) and at two (gloo), K1 and K2
+   calls per rank (counts set to 0 before each run, read after), host
+   syncs, images/s (after a warm-up run in each process), the annotations
+   and the stats held to the single process's; (d) ``sharded_cif_hr`` and
+   ``sharded_seeds`` at 1, 2 and 4 bands (F = 17 over the 40 x 41 cells of
+   a 625 x 641 image, 320 x 321 hires at spacing 2, halo 64 px): the map
+   against the unsharded K1 within 1e-6, overflow 0, the seeds against
+   ``seeds.select``, K1 once per band held to ``accumulate_plain`` (masks
+   bit for bit) and timed one rank at a time, the halo exchange and the
+   banded call timed; (e) ``benchmark_scaling --devices 1``'s json line;
+   each part's seconds;
+20. a ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
    serve phase, ``eval_launches`` from the multi-scale eval,
    ``dense_launches``, ``wholebody_launches``, ``tracking_launches``,
    ``detect_launches``, ``backbones_launches`` (per served backbone),
    ``coco_launches`` (per data module), ``posetrack_launches``,
-   ``show_launches`` (K1 per ``__call__``: plain, indices empty and set)
+   ``show_launches`` (K1 per ``__call__``: plain, indices empty and set),
+   ``parallel_launches`` (K1 and K2 per eval run and rank, K1 per band)
    and (K2) ``export_launches`` from those phases' runs, ``wholebody``,
    ``tracking``, ``detect``, ``detect_cifar10``, ``backbones``, ``coco``,
-   ``posetrack``, ``show`` and ``export`` its hold and times at those
-   shapes), the script's seconds, the card's name and power limit, then
+   ``posetrack``, ``show``, ``parallel`` (K1 at a band of two) and
+   ``export`` its hold and times at those shapes), the script's seconds, the card's name and power limit, then
    the last line ``{"ok": true, "device": {...}}``.
 
 It imports only the port, torch and numpy, and matplotlib where it can be
@@ -253,12 +282,14 @@ imported (the show phase).
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
 import io
 import json
 import logging
+import multiprocessing
 import os
 import re
 import shutil
@@ -401,12 +432,15 @@ def splat_bound_ms(v, x, y, sigma, *, out_hw, spacing, truncate,
             else 'operations', n_bytes, ops)
 
 
-def hold_cif_hr(cif_hr, name: str, inputs, kw) -> float:
+def hold_cif_hr(cif_hr, name: str, inputs, kw,
+                sums_above_one: bool = True) -> float:
     """K1 on ``inputs`` against its plain version, and returns
     max|kernel - plain|.  Also: pass 1's masks (``cif_hr_tile_bins``) equal
     ``tile_bins_plain`` bit for bit, and a second launch gives the same
     bits.  Limit 2e-5 on max|kernel - plain| when clipped, on
-    max|kernel - plain| / (1 + |plain|) when not (sums above 1)."""
+    max|kernel - plain| / (1 + |plain|) when not; unclipped inputs must
+    reach sums above 1 unless ``sums_above_one`` is False (a band of the
+    banded CifHr holds what its inputs give)."""
     got = cif_hr.cif_hr_tile_bins(*inputs, **_bin_kw(kw))
     masks = cif_hr.tile_bins_plain(*inputs, **_bin_kw(kw))
     if not torch.equal(got, masks):
@@ -435,7 +469,7 @@ def hold_cif_hr(cif_hr, name: str, inputs, kw) -> float:
           flush=True)
     if not worst <= 2e-5:
         raise AssertionError(f'cif_hr kernel disagrees ({name}): {worst}')
-    if not clip and float(want.max()) <= 1.0:
+    if not clip and sums_above_one and float(want.max()) <= 1.0:
         raise AssertionError(f'cif_hr {name}: unclipped sums stay below 1')
     return err
 
@@ -449,10 +483,11 @@ def _popcount(masks):
     return sum(int(((m >> i) & 1).sum()) for i in range(32))
 
 
-def measure_cif_hr(cif_hr, name: str, inputs, kw) -> dict:
+def measure_cif_hr(cif_hr, name: str, inputs, kw,
+                   sums_above_one: bool = True) -> dict:
     """K1 held to its plain version on ``inputs`` (``hold_cif_hr``), then
     timed beside the plain version."""
-    err = hold_cif_hr(cif_hr, name, inputs, kw)
+    err = hold_cif_hr(cif_hr, name, inputs, kw, sums_above_one)
     ms = cuda_ms(lambda: cif_hr.cif_hr_accumulate(*inputs, **kw))
     plain = cuda_ms(lambda: cif_hr.accumulate_plain(*inputs, **kw))
     bound, bound_by, n_bytes, ops = splat_bound_ms(*inputs, **kw)
@@ -2751,12 +2786,14 @@ def sum_chains(chains) -> dict:
 def wholebody_phase(port, card: str, tmp: str) -> dict:
     """sn2k30 with ToyWb's 133-keypoint heads at WHOLEBODY_BENCH.json's
     budgets, with 1 and 2 placements per growth round: the served batches
-    (K1 and K2 counted, host syncs per batch), each run's first batch held
-    to the CPU at the same m (``hold_wholebody_batch``) and painted scenes
-    at each of ``JITTER_SEEDS`` with ``hold_card_to_cpu``; K1 at F = 133 and
-    K2 at sn2k30's three chains held to their plain versions and timed on
-    the inputs the main path handed them; then the train CLI on ``toywb``
-    (sn2k16, 321 px) and the eval CLI on its checkpoint."""
+    (K1 and K2 counted, host syncs per batch); K1 at F = 133 and K2 at
+    sn2k30's three chains held to their plain versions and timed on the
+    inputs the main path handed them; then, beside the train CLI on
+    ``toywb`` (sn2k16, 321 px) and the eval CLI on its checkpoint, each
+    run's first batch held to the CPU at the same m
+    (``hold_wholebody_batch``) and painted scenes at each of
+    ``JITTER_SEEDS`` with ``hold_card_to_cpu`` (the holds time nothing, so
+    they need no quiet card)."""
     start = time.perf_counter()
     cls = port.decoder.CifCaf
     old = {key: getattr(cls, key) for key in WB_BUDGETS}
@@ -2774,23 +2811,8 @@ def wholebody_phase(port, card: str, tmp: str) -> dict:
                                        f'{label} served',
                                        capture=m == WB_PLACEMENTS[0])
             check_launches(run, label, SN2K30_CHAINS, SN2K30_BLOCKS)
-            fields, on_card = run['decoded']
-            check_field_shapes(fields, label, ((133, 5), (129, 9)))
-            held = time.perf_counter()
-            hold_wholebody_batch(port, predictor.decoder, on_card, fields,
-                                 f'{label} served batch')
-            print(f'{label}: the CPU decode of the held batch took '
-                  f'{time.perf_counter() - held:.1f} s', flush=True)
-            for seed in JITTER_SEEDS:
-                painted = [torch.as_tensor(a, device='cuda') for a in
-                           painted_wholebody_scenes(port.wb, seed=seed)]
-                on_card = predictor.decoder.batch_decoded(painted)
-                hold_card_to_cpu(port, predictor.decoder, on_card, painted,
-                                 f'{label} painted scenes, jitter seed {seed}')
-                if on_card.valid.sum(dim=1).tolist() != [1, 3]:
-                    raise AssertionError(
-                        f'{label} painted scenes: pose counts '
-                        f'{on_card.valid.sum(dim=1).tolist()}')
+            check_field_shapes(run['decoded'][0], label,
+                               ((133, 5), (129, 9)))
         print(f'wholebody host syncs per batch of {SERVE_BATCH}: ' + ', '.join(
             f'{runs[m]["counts"]["syncs"] / SERVE_BATCHES:.1f} at m={m}'
             for m in WB_PLACEMENTS) + f' ({card})', flush=True)
@@ -2817,16 +2839,40 @@ def wholebody_phase(port, card: str, tmp: str) -> dict:
               f'modules {k2["canonical_ms"]:.4f} ms, bound '
               f'{k2["bound_ms"]:.4f} ms ({k2["bound_by"]})', flush=True)
         counts = {m: run['counts'] for m, run in runs.items()}
+
+        edge = f'--toywb-image-size={WB_CLI_EDGE}'
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            clis = pool.submit(
+                cli_train_eval, 'toywb',
+                ['--dataset=toywb', '--basenet=shufflenetv2k16', edge,
+                 f'--toywb-n-images={CLI_IMAGES}'],
+                ['--dataset=toywb', edge], os.path.join(tmp, 'toywb'),
+                ['cif', 'caf'])
+            for m in WB_PLACEMENTS:
+                with_placements(predictor.decoder, m)
+                label = f'wholebody m={m}'
+                fields, on_card = runs[m]['decoded']
+                held = time.perf_counter()
+                hold_wholebody_batch(port, predictor.decoder, on_card,
+                                     fields, f'{label} served batch')
+                print(f'{label}: the CPU decode of the held batch took '
+                      f'{time.perf_counter() - held:.1f} s', flush=True)
+                for seed in JITTER_SEEDS:
+                    painted = [torch.as_tensor(a, device='cuda') for a in
+                               painted_wholebody_scenes(port.wb, seed=seed)]
+                    on_card = predictor.decoder.batch_decoded(painted)
+                    hold_card_to_cpu(
+                        port, predictor.decoder, on_card, painted,
+                        f'{label} painted scenes, jitter seed {seed}')
+                    if on_card.valid.sum(dim=1).tolist() != [1, 3]:
+                        raise AssertionError(
+                            f'{label} painted scenes: pose counts '
+                            f'{on_card.valid.sum(dim=1).tolist()}')
+            clis.result()
         del predictor, first, runs
     finally:
         for key, value in old.items():
             setattr(cls, key, value)
-
-    edge = f'--toywb-image-size={WB_CLI_EDGE}'
-    cli_train_eval('toywb', ['--dataset=toywb', '--basenet=shufflenetv2k16',
-                             edge, f'--toywb-n-images={CLI_IMAGES}'],
-                   ['--dataset=toywb', edge], os.path.join(tmp, 'toywb'),
-                   ['cif', 'caf'])
     print(f'wholebody phase: {time.perf_counter() - start:.1f} s ({card})',
           flush=True)
     return dict(counts=counts, k1=k1, k2=k2)
@@ -5547,6 +5593,642 @@ def show_phase(port, card: str, served, tmp: str) -> dict:
                 seconds=seconds)
 
 
+# --------------------------------------------------------------- parallel
+# The card's machine has one card: NCCL takes a group of one rank there, and
+# groups of two and four ranks share cuda:0 over gloo, which takes CUDA
+# tensors in all_reduce and broadcast (the port's all_gather sums each
+# rank's rows into zeros there).  The rank bodies below run in processes
+# that parallel.run_group starts with the spawn method, which imports this
+# script as a module (main() does not run there).
+# (a) the train CLI, --ddp at a world of one against no --ddp: one toykp
+# epoch of 16 images at 385 px, batch 8, sn2k16, bf16, cuDNN and cuBLAS
+# deterministic
+DDP_CLI_ARGS = ['--dataset=toykp', '--basenet=shufflenetv2k16',
+                f'--toykp-image-size={TRAIN_EDGE}', '--toykp-n-images=16',
+                f'--batch-size={TRAIN_BATCH}', '--epochs=1']
+DDP_CLI_TOL = 1e-6          # of each checkpoint array's scale
+DETERMINISTIC_TRAIN = (
+    'import sys, torch\n'
+    'torch.backends.cudnn.deterministic = True\n'
+    'torch.backends.cudnn.benchmark = False\n'
+    'torch.use_deterministic_algorithms(True, warn_only=True)\n'
+    'from openpifpaf_tpu_torch import train\n'
+    'sys.exit(train.main(sys.argv[1:]))\n')
+# (b) one SGD step at two ranks against one rank on the global batch, by
+# the train phase's card-vs-CPU measures (check_train_card_vs_cpu): the
+# losses and the running statistics within 1e-4 of the one-rank step's.
+# At full width the f32 gradients themselves are not good to 1e-3: the
+# BatchNorm backward cancels (a first run on the H100: the two-rank step's
+# gradients 4.955e-2 of scale from the one-rank step's, its losses within
+# 4.6e-7; on the CPU at 65 px the one-rank step on 1 and on 8 threads
+# lies 3.0e-2 and 4.7e-3 from the float64 step).  So the gradients are
+# held to the one-rank step within 1e-3 of scale or 3 times the distance
+# between two summation orders of the one-rank step (the batch in its
+# order and with its halves swapped), if larger; and the gradients and
+# the step to the same step in float64, within 1e-3 of scale (1 for the
+# step's measure) or 3 times the one-rank f32 steps' distance from it
+DDP_STEP_SETTINGS = dict(lr=0.05, clip_grad_norm=5.0, clip_grad_value=1.0,
+                         weight_decay=1e-4)
+DDP_NOISE_FACTOR = 3.0
+# (c) --dp-eval: serve's sn2k16 with bias-shifted heads on toykp's 8 eval
+# images at 641 px in batches of 4
+DP_EVAL_EDGE = 641
+DP_EVAL_BATCH = 4
+# (d) the banded CifHr and seeds: F = 17 over the 40 x 41 cells of a
+# 625 x 641 image at stride 16, its 320 x 321 hires grid at spacing 2
+BAND_CELLS = (17, 40, 41)
+BAND_OUT_HW = (320, 321)
+BAND_HALO_PX = 64.0
+BAND_TOL = 1e-6
+
+
+def deterministic_train_cli(args, **env):
+    """The train CLI as a subprocess with cuDNN's and cuBLAS's
+    deterministic algorithms (so that two runs can be held to each
+    other); ``wait_cli`` finishes it."""
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, '-c', DETERMINISTIC_TRAIN, *args], cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO,
+                 CUBLAS_WORKSPACE_CONFIG=':4096:8', **env), text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def checkpoint_difference(port, a: str, b: str) -> float:
+    """max over the arrays of two npz checkpoints of |a - b| / max(1, |b|)."""
+    from openpifpaf_tpu_torch.models import checkpoint
+
+    _, flat_a = checkpoint.load(a)
+    _, flat_b = checkpoint.load(b)
+    if sorted(flat_a) != sorted(flat_b):
+        raise AssertionError(f'{a} and {b} hold different arrays')
+    return max(float(np.abs(np.asarray(flat_a[k], np.float64)
+                            - np.asarray(flat_b[k], np.float64)).max())
+               / max(1.0, float(np.abs(flat_b[k]).max())) for k in flat_b)
+
+
+def ddp_step(device, images, targets, ablate=None, dtype=torch.float32):
+    """(b) One SGD step of seeded sn2k16 at full width, f32 (or
+    ``dtype``: the model and the images in float64, the loss in f32) with
+    TF32 off, on this rank's shard of the global batch: the data-parallel
+    step in a group, the plain step outside one.  ``ablate``: per-rank
+    ``batch_norm`` statistics or per-rank ``loss_means``.  Returns the
+    loss components, the gradients as the optimizer gets them (averaged
+    over the group, before the clip) and the state after the step, on
+    the CPU."""
+    from openpifpaf_tpu_torch import losses, models, parallel, training
+    from openpifpaf_tpu_torch.models import base
+    from openpifpaf_tpu_torch.plugins import toykp
+
+    saved = tf32_off()
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        metas = toykp.coco_head_metas()
+        model = models.factory('shufflenetv2k16', metas, device=device,
+                               bf16=False, seed=0)
+        model.module.to(dtype)
+        opt = training.OptimizeFactory()
+        for key, value in DDP_STEP_SETTINGS.items():
+            setattr(opt, key, value)
+        trainer = training.Trainer(
+            model, losses.Factory().factory(model.head_metas), opt,
+            os.devnull)
+        if ablate == 'batch_norm':
+            for m in model.module.modules():
+                if isinstance(m, base.BatchNorm):
+                    m.process_group = None
+        elif ablate == 'loss_means':
+            for loss in trainer.loss_fn.losses:
+                loss.process_group = None
+        trainer.setup(steps_per_epoch=1)
+        grads = {}
+        clip = opt.clip_gradients
+
+        def keep(params):
+            grads.update({n: p.grad.detach().cpu().clone()
+                          for n, p in model.module.named_parameters()})
+            return clip(params)
+
+        opt.clip_gradients = keep
+        to_device = trainer._to_device  # pylint: disable=protected-access
+        trainer._to_device = lambda i, t: (  # pylint: disable=protected-access
+            lambda x, y: (x.to(dtype), y))(*to_device(i, t))
+        images, targets = parallel.shard_batch((images, targets))
+        _, comps = trainer.train_step(images, targets)
+        return (comps.cpu(), grads,
+                {k: v.cpu() for k, v in model.module.state_dict().items()})
+    finally:
+        restore_tf32(saved)
+        torch.backends.cudnn.benchmark = benchmark
+
+
+def step_gaps(got, want, before) -> dict:
+    """``check_train_card_vs_cpu``'s measures of one step against another:
+    the loss components' max relative |Δ| (limit 1e-4), the gradients'
+    max|Δ| over their scale (1e-3), the step's change over 1e-3 of the
+    reference change plus 2 ulps (1) and the running statistics (1e-4)."""
+    (comps_g, grads_g, state_g), (comps, grads, state) = got, want
+    loss = float(((comps_g - comps).abs() / comps.abs().clamp(min=1.0)).max())
+    floor = 1e-2 * max(float(g.abs().max()) for g in grads.values())
+    grad = max(float((grads_g[n] - g).abs().max())
+               / max(float(g.abs().max()), floor) for n, g in grads.items())
+    stats = max(float((state_g[k] - v).abs().max())
+                / max(1.0, float(v.abs().max())) for k, v in state.items()
+                if k.endswith(('running_mean', 'running_var')))
+    deltas = {n: state[n] - before[n] for n in grads}
+    step_floor = 1e-2 * max(float(d.abs().max()) for d in deltas.values())
+    eps = float(torch.finfo(torch.float32).eps)
+    step = max(float((state_g[n] - before[n] - d).abs().max())
+               / (1e-3 * max(float(d.abs().max()), step_floor)
+                  + 2 * eps * float(before[n].abs().max()))
+               for n, d in deltas.items())
+    return dict(loss=loss, gradients=grad, step=step, statistics=stats)
+
+
+def hold_ddp_step(got, one_ranks, exact, before, label: str) -> bool:
+    """(b) Whether a two-rank step passes: the losses and the running
+    statistics within 1e-4 of the (first) one-rank f32 step's, its
+    gradients within 1e-3 or ``DDP_NOISE_FACTOR`` times the gradients'
+    distance between the two one-rank orders; the gradients and the step
+    against the float64 step, within 1e-3 (1) or ``DDP_NOISE_FACTOR``
+    times the one-rank f32 steps' largest distance from it.  Prints the
+    readings."""
+    to_one = step_gaps(got, one_ranks[0], before)
+    to_exact = step_gaps(got, exact, before)
+    orders = step_gaps(one_ranks[1], one_ranks[0], before)
+    floors = [step_gaps(one, exact, before) for one in one_ranks]
+    noise = {k: max(f[k] for f in floors) for k in floors[0]}
+    one_limit = max(1e-3, DDP_NOISE_FACTOR * orders['gradients'])
+    grad_limit = max(1e-3, DDP_NOISE_FACTOR * noise['gradients'])
+    step_limit = max(1.0, DDP_NOISE_FACTOR * noise['step'])
+    within = (to_one['loss'] <= 1e-4 and to_one['statistics'] <= 1e-4
+              and to_one['gradients'] <= one_limit
+              and to_exact['gradients'] <= grad_limit
+              and to_exact['step'] <= step_limit)
+    print(f'(b) {label}: against one rank on all 8 images: losses max rel '
+          f'|Δ| {to_one["loss"]:.3e} (limit 1e-4), running statistics '
+          f'{to_one["statistics"]:.3e} (1e-4), gradients '
+          f'{to_one["gradients"]:.3e} (limit {one_limit:.3e}; the two '
+          f'one-rank orders {orders["gradients"]:.3e} apart), step '
+          f'{to_one["step"]:.3e}; against '
+          f'the float64 step: gradients {to_exact["gradients"]:.3e} (limit '
+          f'{grad_limit:.3e}), step {to_exact["step"]:.3e} (limit '
+          f'{step_limit:.3e}); the one-rank f32 steps from float64: gradients '
+          f'{noise["gradients"]:.3e}, step {noise["step"]:.3e}, losses '
+          f'{noise["loss"]:.3e}: {"within" if within else "outside"} the '
+          f'limits', flush=True)
+    return within
+
+
+def dp_eval_runs(device, runs):  # pylint: disable=unused-argument
+    """(c) The eval CLI (``eval.main``) once per argument list, in this
+    rank: its exit code, K1 and K2 calls and host syncs (the counts set to
+    0 before each run, read after), the stats and the COCO predictions of
+    every rank."""
+    from openpifpaf_tpu_torch import eval as eval_mod
+    from openpifpaf_tpu_torch.ops import cif_hr, common, pair_chain
+
+    run = eval_mod.Evaluator.run
+    out = []
+    for argv in runs:
+        kept = []
+
+        def keep(self, kept=kept):
+            kept.append((self, run(self)))
+            return kept[-1][1]
+
+        eval_mod.Evaluator.run = keep
+        cif_hr.KERNEL_LAUNCHES = pair_chain.KERNEL_LAUNCHES = 0
+        common.HOST_SYNCS = 0
+        try:
+            rc = eval_mod.main(argv)
+        finally:
+            eval_mod.Evaluator.run = run
+        (evaluator, stats), = kept
+        out.append(dict(rc=rc, k1=cif_hr.KERNEL_LAUNCHES,
+                        k2=pair_chain.KERNEL_LAUNCHES,
+                        syncs=common.HOST_SYNCS, stats=stats,
+                        predictions=evaluator.metrics[0].predictions))
+    return out
+
+
+def band_fields(seed: int = 0):
+    """(d) CIF fields of BAND_CELLS: a faint background under the
+    activation threshold and six people per field painted as 4 x 4 cells
+    around their keypoint (``splat_inputs``' sparse kind), scales 10-40 px:
+    each cell's target lies within 32 px and its blob within 20 px of it,
+    so no blob reaches past the 64 px halo."""
+    f, h, w = BAND_CELLS
+    rng = np.random.default_rng(seed)
+    jj, ii = np.mgrid[0:h, 0:w].astype(np.float32)
+    conf = np.full((f, h, w), 0.02)
+    x = np.broadcast_to(ii * 16.0, (f, h, w)).copy()
+    y = np.broadcast_to(jj * 16.0, (f, h, w)).copy()
+    scale = np.full((f, h, w), 20.0)
+    for fi in range(f):
+        for _ in range(6):
+            cx, cy = rng.uniform(2, w - 3), rng.uniform(2, h - 3)
+            sl = (fi, slice(int(cy) - 1, int(cy) + 3),
+                  slice(int(cx) - 1, int(cx) + 3))
+            conf[sl] = rng.uniform(0.4, 1.0, (4, 4))
+            x[sl] = (cx + rng.normal(0, 0.1, (4, 4))) * 16.0
+            y[sl] = (cy + rng.normal(0, 0.1, (4, 4))) * 16.0
+            scale[sl] = rng.uniform(10, 40)
+    return [torch.tensor(a, dtype=torch.float32) for a in (conf, x, y, scale)]
+
+
+def band_ranks(device, fields):
+    """(d) This rank's band: ``sharded_cif_hr`` (K1 once, counted, its
+    inputs kept) and ``sharded_seeds``; K1's band call held to its plain
+    version (``measure_cif_hr``: pass 1's masks bit for bit) and timed,
+    one rank at a time; the halo exchange and the whole banded call timed
+    (CUDA events; every rank calls the collectives the same number of
+    times)."""
+    from openpifpaf_tpu_torch import parallel
+    from openpifpaf_tpu_torch.ops import cif_hr, seeds
+    from openpifpaf_tpu_torch.parallel import spatial
+
+    conf, x, y, scale = (t.to(device) for t in fields)
+    config = cif_hr.CifHrConfig(profile_bf16=False)
+    kw = dict(out_hw=BAND_OUT_HW, config=config,
+              spatial=parallel.SpatialConfig(halo_px=BAND_HALO_PX))
+    n, band = parallel.world(), parallel.rank()
+    captured = []
+    launch = cif_hr.cif_hr_accumulate
+
+    def spy(*args, **kwargs):
+        captured.append(([a.clone() for a in args], dict(kwargs)))
+        return launch(*args, **kwargs)
+
+    cif_hr.KERNEL_LAUNCHES = 0
+    cif_hr.cif_hr_accumulate = spy
+    try:
+        banded = parallel.sharded_cif_hr(conf, x, y, scale, **kw)
+    finally:
+        cif_hr.cif_hr_accumulate = launch
+    launches = cif_hr.KERNEL_LAUNCHES
+    selected = parallel.sharded_seeds(
+        conf, x, y, scale, banded.hr, hr_spacing=float(config.spacing),
+        config=seeds.SeedsConfig(), spatial=kw['spatial'])
+    (args, call_kw), = captured
+    # the ranks share the card: each measures its K1 call while the others
+    # wait at a barrier
+    for turn in range(n):
+        if turn == band:
+            k1 = measure_cif_hr(cif_hr, f'band {band} of {n}', args, call_kw,
+                                sums_above_one=False)
+        if n > 1:
+            torch.distributed.barrier()
+    k1['shape'] = (f'(B, F, N) {tuple(args[0].shape)} -> '
+                   f'{tuple(call_kw["out_hw"])}, y_offset_px '
+                   f'{call_kw["y_offset_px"]}, unclipped')
+    halo_rows = int(round(BAND_HALO_PX / config.spacing))
+    strips = banded.hr.new_zeros((2, BAND_CELLS[0], halo_rows,
+                                  BAND_OUT_HW[1]))
+    exchange = cuda_ms(lambda: spatial._neighbours(strips, band, n, None))  # pylint: disable=protected-access
+    whole = cuda_ms(lambda: parallel.sharded_cif_hr(conf, x, y, scale, **kw))
+    return dict(hr=banded.hr.cpu(), overflow=int(banded.halo_overflow),
+                seeds=seeds.Seeds(*[t.cpu() for t in selected]),
+                launches=launches, k1=k1, exchange_ms=exchange[0],
+                banded_ms=whole[0])
+
+
+def parallel_ranks(device, step_inputs, fields, eval_runs, quiet):
+    """The two gloo ranks' body, in order: (b) ``ddp_step`` (the step and
+    each ablation), (c) the first of ``eval_runs`` (``dp_eval_runs``: it
+    warms the process up), then, once the event ``quiet`` says that the
+    card runs nothing else, the measured runs: (c) the other eval runs and
+    (d) ``band_ranks``."""
+    images, targets = step_inputs
+    out = {'steps': {ablate: ddp_step(device, images, targets, ablate)
+                     for ablate in (None, 'batch_norm', 'loss_means')}}
+    out['eval'] = dp_eval_runs(device, eval_runs[:1])
+    if not quiet.wait(timeout=900):
+        raise RuntimeError('the card did not fall quiet')
+    torch.distributed.barrier()
+    out['eval'] += dp_eval_runs(device, eval_runs[1:])
+    out['bands'] = band_ranks(device, fields)
+    return out
+
+
+def gated_eval_runs(device, runs, warm, go):
+    """(c) ``dp_eval_runs`` of the first run (the warm-up; then the event
+    ``warm`` is set), then of the others once the event ``go`` is set."""
+    out = dp_eval_runs(device, runs[:1])
+    warm.set()
+    if not go.wait(timeout=900):
+        raise RuntimeError('no turn to measure')
+    return out + dp_eval_runs(device, runs[1:])
+
+
+def gated_bands(device, fields, go):
+    """(d) ``band_ranks`` once the event ``go`` is set."""
+    if not go.wait(timeout=900):
+        raise RuntimeError('no turn to measure')
+    torch.distributed.barrier()
+    return band_ranks(device, fields)
+
+
+def hold_eval_runs(port, got, want, label: str) -> None:
+    """(c) An eval run's predictions against the single-process run's:
+    per image the same number of poses, every pose but at most one per
+    image within 1e-3 in its keypoints and 1e-4 in its score (the card's
+    near-ties at the budgets, ``hold_at_budget``); the stats within 1e-6."""
+    def by_image(preds):
+        out = {}
+        for p in preds:
+            out.setdefault(p['image_id'], []).append(p)
+        return {k: sorted(v, key=lambda p: -p['score'])
+                for k, v in out.items()}
+
+    g, w = by_image(got['predictions']), by_image(want['predictions'])
+    if sorted(g) != sorted(w):
+        raise AssertionError(f'{label}: other images predicted')
+    missed, worst = [], 0.0
+    for image_id, wants in w.items():
+        gots = g[image_id]
+        if len(gots) != len(wants):
+            raise AssertionError(f'{label}: image {image_id}: {len(gots)} '
+                                 f'poses, single process {len(wants)}')
+        misses = 0
+        for a, b in zip(gots, wants):
+            d = float(np.abs(np.asarray(a['keypoints'])
+                             - np.asarray(b['keypoints'])).max())
+            worst = max(worst, d)
+            misses += not (d <= 1e-3 and abs(a['score'] - b['score']) <= 1e-4)
+        missed.append(misses)
+    stats_err = float(np.abs(np.asarray(got['stats']['stats'])
+                             - np.asarray(want['stats']['stats'])).max())
+    print(f'{label}: {sum(len(v) for v in g.values())} poses on '
+          f'{len(g)} images, max|Δkeypoints| {worst:.3e}, poses beyond '
+          f'1e-3 per image {missed} (limit 1), stats max|Δ| '
+          f'{stats_err:.3e} (limit 1e-6), equal: '
+          f'{got["predictions"] == want["predictions"]}', flush=True)
+    if max(missed) > 1 or stats_err > 1e-6:
+        raise AssertionError(f'{label}: the eval differs from one process')
+
+
+def parallel_phase(port, card: str, tmp: str) -> dict:
+    """``--ddp``, ``--dp-eval``, the banded CifHr and seeds and the scaling
+    harness: (a)-(e) of the module's docstring.  The CLIs it starts are
+    stopped if it fails."""
+    launched = []
+    try:
+        return _parallel_phase(port, card, tmp, launched)
+    finally:
+        kill_clis(*launched)
+
+
+def _parallel_phase(port, card: str, tmp: str, launched: list) -> dict:
+    from openpifpaf_tpu_torch import parallel
+    from openpifpaf_tpu_torch.models import checkpoint
+
+    start = time.perf_counter()
+    # (d) at one band, in this process, and the unsharded references, on
+    # the card before anything else runs
+    fields = band_fields()
+    conf, x, y, scale = (t.cuda() for t in fields)
+    config = port.cif_hr.CifHrConfig(profile_bf16=False)
+    dense = port.cif_hr.accumulate(conf, x, y, scale, out_hw=BAND_OUT_HW,
+                                   config=config)
+    oracle = port.ops.seeds.select(
+        conf[None], x[None], y[None], scale[None], dense[None],
+        hr_spacing=float(config.spacing),
+        config=port.ops.seeds.SeedsConfig())
+    dense, oracle = dense.cpu(), port.ops.seeds.Seeds(
+        *[t.cpu() for t in oracle])
+    one_band = band_ranks(torch.device('cuda'), fields)
+
+    # (a) the train CLI with --ddp at a world of one (NCCL), beside the
+    # same CLI without it
+    clis = {}
+    for name, ddp in (('ddp', True), ('plain', False)):
+        out = os.path.join(tmp, f'cli_{name}')
+        env = (dict(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0',
+                    MASTER_ADDR='localhost',
+                    MASTER_PORT=str(parallel.mesh.free_port()))
+               if ddp else {})
+        clis[name] = (out, deterministic_train_cli(
+            DDP_CLI_ARGS + ['-o', out] + (['--ddp'] if ddp else []), **env))
+        launched.append(clis[name][1])
+
+    # (b) one SGD step at two ranks (gloo) against one rank, beside (a)
+    metas = port.toykp.coco_head_metas()
+    for meta in metas:
+        meta.base_stride = 16
+    images, targets, _ = toykp_batch(port, metas, TRAIN_EDGE, TRAIN_BATCH,
+                                     'cpu')
+    before = {k: v.clone() for k, v in port.models.factory(
+        'shufflenetv2k16', metas, device='cpu', bf16=False,
+        seed=0).module.state_dict().items()}
+
+    # (c)'s model: serve's sn2k16 with bias-shifted heads, as a checkpoint
+    model = port.models.factory('shufflenetv2k16', metas, device='cuda',
+                                seed=0)
+    shift_head_biases(model, metas)
+    model_path = os.path.join(tmp, 'shifted.npz')
+    checkpoint.save(model_path, variables=port.models.to_jax_variables(
+        model.module.state_dict()), head_metas=metas,
+        basenet_name='shufflenetv2k16', base_stride=16)
+    del model
+    eval_argv = ['--dataset=toykp', f'--toykp-image-size={DP_EVAL_EDGE}',
+                 f'--batch-size={DP_EVAL_BATCH}',
+                 f'--checkpoint={model_path}', '-q']
+
+    # three groups start together beside (a): two gloo ranks for (b), (c)
+    # and (d), one NCCL rank for (c), four gloo ranks for (d); each warms up
+    # (and runs (b)) at once, then measures on a card that runs nothing
+    # else: after (a), this process's one-rank steps and the warm-ups, one
+    # group after the other
+    ctx = multiprocessing.get_context('spawn')
+    quiet, one_warm, go_one, go_four = (ctx.Event() for _ in range(4))
+    # each group gets its own copies: starting a process moves the tensors
+    # it is handed to shared memory, and the groups start side by side
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        two = pool.submit(
+            parallel.run_group, parallel_ranks, 2, (
+                copy.deepcopy((images, targets)), copy.deepcopy(fields),
+                [eval_argv + ['--dp-eval', '-o', os.path.join(tmp, f'dp2_{i}')]
+                 for i in ('warm', '')], quiet),
+            device='cuda', backend='gloo', timeout=900)
+        # (c) at one rank (NCCL): the single process at the batch of a rank
+        # of two (which also warms the process up), at the whole batch,
+        # then with --dp-eval
+        one = pool.submit(
+            parallel.run_group, gated_eval_runs, 1, ([
+                eval_argv + [f'--batch-size={DP_EVAL_BATCH // 2}', '-o',
+                             os.path.join(tmp, 'single_half')],
+                eval_argv + ['-o', os.path.join(tmp, 'single')],
+                eval_argv + ['--dp-eval', '-o', os.path.join(tmp, 'dp1')]],
+                one_warm, go_one),
+            device='cuda', backend='nccl', timeout=900)
+        four = pool.submit(parallel.run_group, gated_bands, 4,
+                           (copy.deepcopy(fields), go_four), device='cuda',
+                           backend='gloo', timeout=900)
+        try:
+            try:
+                try:
+                    # (b)'s references while the groups start: one rank on
+                    # all 8 images, in order and with the halves swapped
+                    # (two summation orders of one step), and float64
+                    swap = torch.cat([torch.arange(TRAIN_BATCH // 2,
+                                                   TRAIN_BATCH),
+                                      torch.arange(TRAIN_BATCH // 2)])
+                    one_ranks = [
+                        ddp_step(torch.device('cuda'), images, targets),
+                        ddp_step(torch.device('cuda'), images[swap],
+                                 [{k: v[swap] for k, v in t.items()}
+                                  for t in targets])]
+                    exact = ddp_step(torch.device('cuda'), images, targets,
+                                     dtype=torch.float64)
+                    print(f'(b) the one-rank and float64 steps done at '
+                          f'{time.perf_counter() - start:.1f} s', flush=True)
+                    for name, (out, started) in clis.items():
+                        print(f'(a) train CLI {name}: exit 0 in '
+                              f'{wait_cli(started, f"train CLI {name}"):.1f}'
+                              f' s (at {time.perf_counter() - start:.1f} s)',
+                              flush=True)
+                    one_warm.wait(timeout=900)
+                finally:
+                    quiet.set()
+                ranks = two.result()
+            finally:
+                go_one.set()
+            single_half, single, dp1 = one.result()[0]
+        finally:
+            go_four.set()
+        bands4 = four.result()
+    print(f'(b)-(d) the groups done at {time.perf_counter() - start:.1f} s',
+          flush=True)
+    # (e) the scaling harness on the card, while this process holds (b)-(d)
+    scaling_cli = start_cli('benchmark_scaling', ['--devices', '1'])
+    launched.append(scaling_cli)
+    steps = {ablate: hold_ddp_step(
+        ranks[0]['steps'][ablate], one_ranks, exact, before,
+        f'one SGD step, sn2k16 f32 (TF32 off), {TRAIN_BATCH} toykp images '
+        f'at {TRAIN_EDGE} px split 4 + 4 over two ranks '
+        + ('(the data-parallel step)' if ablate is None
+           else f'without the global {ablate}'))
+        for ablate in (None, 'batch_norm', 'loss_means')}
+    if not steps[None]:
+        raise AssertionError('the two-rank step differs from one rank')
+    if steps['batch_norm'] or steps['loss_means']:
+        raise AssertionError('an ablated step passed the hold')
+    if not all(torch.equal(ranks[1]['steps'][None][2][k], v)
+               for k, v in ranks[0]['steps'][None][2].items()):
+        raise AssertionError('the two ranks hold different weights')
+
+    dp2 = [r['eval'][1] for r in ranks]
+    for label, run in (('single process, warm-up, batch 2', single_half),
+                       ('single process', single),
+                       ('--dp-eval, 1 rank (NCCL)', dp1),
+                       ('--dp-eval, rank 0 of 2 (gloo)', dp2[0]),
+                       ('--dp-eval, rank 1 of 2 (gloo)', dp2[1])):
+        print(f'(c) {label}: exit {run["rc"]}, K1 {run["k1"]} and K2 '
+              f'{run["k2"]} calls, {run["syncs"]} host syncs, '
+              f'{run["stats"]["images_per_second"]} images/s '
+              f'(nn {run["stats"]["nn_time"]} s, decoder '
+              f'{run["stats"]["decoder_time"]} s), AP '
+              f'{run["stats"]["stats"][0]:.4f}', flush=True)
+        if run['rc'] != 0:
+            raise AssertionError(f'(c) {label}: exit {run["rc"]}')
+    n_batches = -(-8 // DP_EVAL_BATCH)
+    if (single_half['k1'], single_half['k2']) != (2 * n_batches,
+                                                  6 * n_batches) or \
+            (single['k1'], single['k2']) != (n_batches, 3 * n_batches) or \
+            (dp1['k1'], dp1['k2']) != (single['k1'], single['k2']) or \
+            any((r['k1'], r['k2']) != (n_batches, 3 * n_batches)
+                for r in dp2):
+        raise AssertionError('(c) K1 once and K2 three times per batch on '
+                             'every rank')
+    # each rank of two forwards the same 2-image batches as the single
+    # process at batch 2 (cuDNN's and K2's sums depend on the batch)
+    hold_eval_runs(port, dp1, single, '(c) --dp-eval at 1 rank')
+    for r, run in enumerate(dp2):
+        hold_eval_runs(port, run, single_half,
+                       f'(c) --dp-eval, rank {r} of 2, against the single '
+                       'process at batch 2')
+    with open(os.path.join(tmp, 'single_half.stats.json')) as f:
+        stats_single = json.load(f)
+    with open(os.path.join(tmp, 'dp2_.stats.json')) as f:
+        stats_dp2 = json.load(f)
+    if stats_single['text_labels'] != stats_dp2['text_labels'] or \
+            stats_single['n_images'] != stats_dp2['n_images'] or \
+            stats_single['stats'] != stats_dp2['stats']:
+        raise AssertionError('(c) the stats files differ')
+
+    # (d) the banded CifHr and seeds at 1, 2 and 4 bands
+    bands = {1: [one_band], 2: [r['bands'] for r in ranks], 4: bands4}
+    for n, results in bands.items():
+        hr = torch.cat([r['hr'] for r in results], dim=1)
+        err = float((hr - dense).abs().max())
+        seed_err = 0.0
+        valid = int(oracle.valid[0].sum())
+        for r in results:
+            s = r['seeds']
+            if not torch.equal(s.valid, oracle.valid[0]):
+                raise AssertionError(f'(d) {n} bands: other valid seeds')
+            for name in ('v', 'f', 'x', 'y', 's'):
+                got = getattr(s, name)[:valid].double()
+                want = getattr(oracle, name)[0, :valid].double()
+                seed_err = max(seed_err, float(((got - want).abs()
+                                                / want.abs().clamp(min=1.0))
+                                               .max()))
+        print(f'(d) {n} band(s) of {BAND_OUT_HW[0] // n} hires rows, halo '
+              f'{BAND_HALO_PX:.0f} px: hires map against the unsharded K1 '
+              f'max|Δ| {err:.3e} (limit {BAND_TOL}), overflow '
+              f'{[r["overflow"] for r in results]}, K1 calls per rank '
+              f'{[r["launches"] for r in results]}, {valid} seeds against '
+              f'seeds.select max rel |Δ| {seed_err:.3e} (limit {BAND_TOL}); '
+              f'per rank: K1 {[round(r["k1"]["ms"], 4) for r in results]} '
+              f'ms, the halo exchange '
+              f'{[round(r["exchange_ms"], 4) for r in results]} ms, the '
+              f'banded call {[round(r["banded_ms"], 4) for r in results]} '
+              f'ms', flush=True)
+        if not (err <= BAND_TOL and seed_err <= BAND_TOL
+                and all(r['overflow'] == 0 and r['launches'] == 1
+                        for r in results)):
+            raise AssertionError(f'(d) {n} bands differ from one card')
+
+    # (a) the checkpoints of the train CLI with and without --ddp
+    diff = checkpoint_difference(port, clis['ddp'][0] + '.npz',
+                                 clis['plain'][0] + '.npz')
+    print(f'(a) train --ddp at a world of one (NCCL) against no --ddp: '
+          f'checkpoint max|Δ| / max(1, |value|) {diff:.3e} (limit '
+          f'{DDP_CLI_TOL})', flush=True)
+    if not diff <= DDP_CLI_TOL:
+        raise AssertionError('(a) train --ddp at one rank differs')
+
+    _, proc = scaling_cli
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    if proc.returncode != 0:
+        raise AssertionError(f'benchmark_scaling failed:\n{err[-3000:]}')
+    scaling = [json.loads(line) for line in out.splitlines()
+               if line.startswith('{')]
+    print(f'(e) benchmark_scaling --devices 1: {scaling}', flush=True)
+    if not (len(scaling) == 1 and scaling[0]['devices'] == 1
+            and scaling[0]['step_ms'] > 0):
+        raise AssertionError('(e) no scaling point')
+    seconds = time.perf_counter() - start
+    print(f'parallel phase: {seconds:.1f} s', flush=True)
+    main_band = bands[2][0]['k1']
+    return dict(seconds=seconds, steps=steps, scaling=scaling[0],
+                # per rank: K1 and K2 calls of each eval run, K1's of
+                # each banded CifHr
+                counts={kernel: {'dp_eval_single': single[kernel],
+                                 'dp_eval_1_rank': dp1[kernel],
+                                 'dp_eval_2_ranks': [r[kernel] for r in dp2]}
+                        for kernel in ('k1', 'k2')},
+                bands={n: [r['launches'] for r in rs]
+                       for n, rs in bands.items()},
+                k1=main_band,
+                k1_max_abs_err=max(r['k1']['max_abs_err']
+                                   for rs in bands.values() for r in rs))
+
+
 class _Port:
     """The port's modules, imported after the card check."""
 
@@ -5670,6 +6352,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase('show')
         shown = show_phase(port, card, served, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase('parallel')
+        paralleled = parallel_phase(port, card, tmp)
     k1_backbones = [r['k1'] for r in backbones['served'].values()]
     max_err = max([max_err, wholebody['k1']['max_abs_err'],
                    tracked['k1']['max_abs_err'],
@@ -5679,6 +6364,7 @@ def main() -> int:
                   + [r['max_abs_err'] for r in (coco['k1'], coco['det']['k1'],
                                                 coco['crowd']['k1'],
                                                 posetrack['k1'], shown['k1'])]
+                  + [paralleled['k1_max_abs_err']]
                   + [r['max_abs_err'] for kind, r in evaluated['checks']
                      if kind == 'cif_hr'])
     k2_err = max([k2_err, wholebody['k2']['max_abs_err'],
@@ -5723,6 +6409,9 @@ def main() -> int:
         'posetrack': at_new_shape(posetrack['k1']),
         'show_launches': {k: c['k1'] for k, c in shown['counts'].items()},
         'show': at_new_shape(shown['k1']),
+        'parallel_launches': dict(paralleled['counts']['k1'],
+                                  bands=paralleled['bands']),
+        'parallel': at_new_shape(paralleled['k1']),
         'max_abs_err': max_err, 'max_abs_diff': max_err,
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
@@ -5748,13 +6437,15 @@ def main() -> int:
         'posetrack_launches': posetrack['counts']['k2'],
         'posetrack': at_new_shape(posetrack['k2']),
         'export_launches': exported['launches'],
+        'parallel_launches': paralleled['counts']['k2'],
         'export': at_new_shape(exported['k2']),
         'max_abs_err': k2_err, 'max_abs_diff': k2_err,
         'ms': k2_main['ms'], 'plain_ms': k2_main['plain_ms'],
         'bound_ms': k2_main['bound_ms'], 'bound_by': k2_main['bound_by'],
         'library_ms': None}]}), flush=True)
     print(f'chip_smoke.py: {time.perf_counter() - _START:.1f} s, the show '
-          f'phase {shown["seconds"]:.1f} s ({card})', flush=True)
+          f'phase {shown["seconds"]:.1f} s, the parallel phase '
+          f'{paralleled["seconds"]:.1f} s ({card})', flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -14,7 +14,7 @@ from typing import List
 
 import numpy as np
 import torch
-from torch.utils.data import DataLoader
+from torch.utils.data import DataLoader, Sampler
 
 from .collate import collate_images_anns_meta, collate_images_targets_meta
 from .. import headmeta
@@ -29,6 +29,28 @@ def _reseed_worker(worker_id: int) -> None:  # pylint: disable=unused-argument
     if rng is not None:
         rng.bit_generator.state = \
             np.random.default_rng(info.seed).bit_generator.state
+
+
+class ShardSampler(Sampler):
+    """One host's shard of ``sampler``'s order, by the JAX
+    ``Loader.shard`` rule (``openpifpaf_tpu/datasets/loader.py:74-89``):
+    each epoch's order cut into ``n_shards`` equal contiguous parts, the
+    remainder dropped so that every rank runs the same number of steps.
+    The ranks share the seed, so they cut the same order."""
+
+    def __init__(self, sampler, shard_id: int, n_shards: int):
+        super().__init__()
+        self.sampler = sampler
+        self.shard_id = shard_id
+        self.n_shards = n_shards
+
+    def __len__(self) -> int:
+        return len(self.sampler) // self.n_shards
+
+    def __iter__(self):
+        order = list(self.sampler)
+        per = len(order) // self.n_shards
+        return iter(order[self.shard_id * per:(self.shard_id + 1) * per])
 
 
 class DataModule:
@@ -65,6 +87,23 @@ class DataModule:
         size and mirror the images (multi-scale eval: the Evaluator builds
         one loader per (scale, hflip) variant and OKS-merges the decodes)."""
         raise NotImplementedError
+
+    def distributed_sampler(self, loader, *, host_id: int, n_hosts: int):
+        """``loader`` restricted to this rank's shard (``ShardSampler``);
+        the loaders of a multi-dataset module each to theirs."""
+        loaders = getattr(loader, 'loaders', None)
+        if loaders is not None:
+            loader.loaders = [self.distributed_sampler(
+                l, host_id=host_id, n_hosts=n_hosts) for l in loaders]
+            return loader
+        return DataLoader(loader.dataset, batch_size=loader.batch_size,
+                          sampler=ShardSampler(loader.sampler, host_id,
+                                               n_hosts),
+                          drop_last=loader.drop_last,
+                          collate_fn=loader.collate_fn,
+                          num_workers=loader.num_workers,
+                          worker_init_fn=loader.worker_init_fn,
+                          generator=loader.generator)
 
     def loader(self, dataset, *, shuffle: bool, seed: int,
                collate_fn=collate_images_targets_meta) -> DataLoader:

@@ -239,7 +239,10 @@ class CifCaf(Decoder):
         return self._decoder_for(image_hw)(cif_fields, caf_fields)
 
     def batch_fields(self, fields, metas=None) -> List[List[Annotation]]:
-        decoded = self.batch_decoded(fields)
+        return self.annotations_from_decoded(self.batch_decoded(fields))
+
+    def annotations_from_decoded(self, decoded) -> List[List[Annotation]]:
+        """``batch_decoded``'s tensors -> per image the annotations."""
         # one device->host transfer for the whole batch, then slice
         decoded_np = type(decoded)(*[x.cpu().numpy() for x in decoded])
         return [self.decoded_to_annotations(

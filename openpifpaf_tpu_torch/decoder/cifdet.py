@@ -184,7 +184,10 @@ class CifDet(Decoder):
                 if s >= self.instance_threshold]
 
     def batch_fields(self, fields, metas=None) -> List[List[AnnotationDet]]:
-        decoded = self.batch_decoded(fields)
+        return self.annotations_from_decoded(self.batch_decoded(fields))
+
+    def annotations_from_decoded(self, decoded) -> List[List[AnnotationDet]]:
+        """``batch_decoded``'s tensors -> per image the detections."""
         # one device->host transfer for the whole batch
         packed = torch.cat([decoded.category[..., None].float(),
                             decoded.score[..., None], decoded.bbox],

@@ -7,6 +7,8 @@ into the data module's metrics and writes
 ``<checkpoint>.eval-<dataset>.stats.json`` with the metric stats and the
 time accounting, and the predictions with ``--write-predictions``.  Eval
 runs on the card unless ``--device cpu`` is given; without CUDA it raises.
+``--dp-eval`` under torchrun splits each batch over the ranks (one process
+per card, ``Predictor``'s ``data_parallel``); rank 0 writes the files.
 
 Usage::
 
@@ -24,7 +26,7 @@ import os
 import sys
 import time
 
-from . import datasets, decoder, logger, models, plugins
+from . import datasets, decoder, logger, models, parallel, plugins
 from .predictor import Predictor
 
 LOG = logging.getLogger(__name__)
@@ -152,9 +154,13 @@ def cli(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> int:
     args = cli(argv)
+    device = args.device
+    if Predictor.data_parallel:
+        # the group of torchrun's env:// variables, one process per card
+        device = parallel.initialize_distributed(device) or device
     datamodule = datasets.factory(args.dataset)
     predictor = Predictor(checkpoint=args.checkpoint, base_name=args.basenet,
-                          head_metas=datamodule.head_metas, device=args.device,
+                          head_metas=datamodule.head_metas, device=device,
                           bf16=args.bf16, seed=args.seed,
                           norm=args.basenet_norm,
                           **models.network_options(args))
@@ -164,8 +170,10 @@ def main(argv=None) -> int:
     evaluator = Evaluator(datamodule, predictor)
     stats = evaluator.run()
 
-    # one process: the JAX package writes from rank 0 only
-    # (openpifpaf_tpu/eval.py:166-168); multi-card eval is not ported
+    # rank 0 writes (JAX eval.py:165-167): every rank computed the same
+    # stats from the gathered poses
+    if parallel.rank() != 0:
+        return 0
     if args.output is None:
         args.output = f'{args.checkpoint or "model"}.eval-{args.dataset}'
     os.makedirs(os.path.dirname(args.output) or '.', exist_ok=True)

@@ -17,6 +17,8 @@ import dataclasses
 from typing import List
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 
 from . import components
 from .. import headmeta
@@ -31,9 +33,18 @@ class CompositeLossConfig:
     regression_loss: str = 'laplace'  # 'laplace' | 'smoothl1'
 
 
-def _mean_where(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _mean_where(values: torch.Tensor, mask: torch.Tensor,
+                group=None) -> torch.Tensor:
+    """The mean of ``values`` where ``mask``; with a ``group`` of more than
+    one rank, over the global batch: the sum and the count summed over the
+    group (an all-reduce that autograd differentiates), as JAX divides
+    over its sharded global batch."""
     total = torch.sum(torch.where(mask, values, 0.0))
-    return total / torch.clamp(mask.sum(), min=1).to(values.dtype)
+    count = mask.sum().to(values.dtype)
+    if group is not None and dist.get_world_size(group) > 1:
+        total, count = dist_nn.all_reduce(torch.stack([total, count]),
+                                          group=group)
+    return total / torch.clamp(count, min=1)
 
 
 class CompositeLoss:
@@ -50,6 +61,8 @@ class CompositeLoss:
                  config: CompositeLossConfig = CompositeLossConfig()):
         self.meta = meta
         self.config = config
+        # the group whose global batch the means run over (``--ddp``)
+        self.process_group = None
 
     @property
     def field_names(self) -> List[str]:
@@ -77,7 +90,8 @@ class CompositeLoss:
 
         conf_l = components.focal_bce(conf_raw, target['conf'],
                                       self.config.bce)
-        conf_loss = _mean_where(conf_l, target['conf_mask'])
+        conf_loss = _mean_where(conf_l, target['conf_mask'],
+                                self.process_group)
 
         reg_loss = scale_loss_ = field.new_zeros(())
         if nv > 0:
@@ -88,10 +102,12 @@ class CompositeLoss:
             else:
                 vec_l = components.laplace_regression(
                     vec_raw, spread_raw, vec_target, self.config.laplace)
-            reg_loss = _mean_where(vec_l, target['vec_mask'])
+            reg_loss = _mean_where(vec_l, target['vec_mask'],
+                                   self.process_group)
 
         if ns > 0:
             scale_l = components.scale_loss(scale_raw, target['scale'],
                                             self.config.scale)
-            scale_loss_ = _mean_where(scale_l, target['scale_mask'])
+            scale_loss_ = _mean_where(scale_l, target['scale_mask'],
+                                      self.process_group)
         return [conf_loss, reg_loss, scale_loss_]

@@ -11,6 +11,8 @@ import dataclasses
 from typing import Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
 
@@ -57,9 +59,18 @@ class BatchNorm(nn.BatchNorm2d):
     ``update_stats`` False normalizes with the batch statistics and leaves
     the running ones as they are: the trainer sets it while ``--remat``
     recomputes the forward, so that a step updates them once.
+
+    ``process_group`` set (``--ddp`` sets it) and of more than one rank:
+    the batch statistics are those of the global batch, as JAX's sharded
+    step computes them, from per-channel sums summed over the group by an
+    all-reduce that autograd differentiates (its backward sums the
+    gradients over the group): first the mean, then the squared deviations
+    from it (E[x^2] - E[x]^2 in f32 cancels where |mean| >> std, and
+    would part from the one-process step).
     """
 
     update_stats = True
+    process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -72,6 +83,9 @@ class BatchNorm(nn.BatchNorm2d):
         (all of them, or one parity of them in the fused training plan):
         normalized by the batch statistics, and those channels' running
         statistics updated."""
+        group = self.process_group
+        if group is not None and dist.get_world_size(group) > 1:
+            return self._synced_forward(x, channels, group)
         if self.update_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
@@ -85,6 +99,27 @@ class BatchNorm(nn.BatchNorm2d):
         return F.batch_norm(x, None, None, self.weight[channels].contiguous(),
                             self.bias[channels].contiguous(), True, 0.0,
                             self.eps)
+
+    def _synced_forward(self, x: torch.Tensor, channels: slice,
+                        group) -> torch.Tensor:
+        xf = x.float()
+        c = x.shape[1]
+        count = torch.full((1,), float(x.numel() // c), device=x.device)
+        sums = dist_nn.all_reduce(torch.cat([xf.sum((0, 2, 3)), count]),
+                                  group=group)
+        mean = sums[:c] / sums[c]
+        centered = xf - mean[:, None, None]
+        var = dist_nn.all_reduce((centered * centered).sum((0, 2, 3)),
+                                 group=group) / sums[c]
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean[channels].mul_(BN_MOMENTUM).add_(
+                    mean, alpha=1 - BN_MOMENTUM)
+                self.running_var[channels].mul_(BN_MOMENTUM).add_(
+                    var, alpha=1 - BN_MOMENTUM)
+        scale = torch.rsqrt(var + self.eps) * self.weight[channels]
+        return (centered * scale[:, None, None]
+                + self.bias[channels][:, None, None]).to(x.dtype)
 
 
 def batch_norm(channels: int) -> BatchNorm:

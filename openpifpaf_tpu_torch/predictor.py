@@ -12,12 +12,21 @@ module's eval batches (images already preprocessed by
 ``image(path)`` read image files (``datasets.ImageList``: PNG always, JPEG
 and BMP where PIL is importable) through the same eval transforms, at one
 scale or, with ``multi_scale``, at several (``images_multiscale``).
-Data-parallel eval is not ported.
+With ``data_parallel`` (``--dp-eval``) in a process group of more than
+one rank, each eval batch is padded to a multiple of the group's size
+with copies of its last image, and each rank runs the forward (K2) and the
+decode (K1) on its contiguous slice, on its own card; the static-shaped
+decoded tensors are gathered (``parallel.all_gather``), the padding
+dropped, and every rank builds the whole batch's annotations (the JAX
+``predictor.py:63-104,141-163``).  A decoder without ``batch_decoded``
+runs undistributed, with JAX's warning; at a world of one the flag changes
+nothing.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import time
 from typing import Iterator, List, Optional, Sequence, Tuple
 
@@ -25,10 +34,12 @@ import numpy as np
 import torch
 from torch.utils.data import DataLoader
 
-from . import datasets, decoder as decoder_mod, models, transforms
+from . import datasets, decoder as decoder_mod, models, parallel, transforms
 from .decoder.pose_similarity import oks_matrix
 from .device import resolve_device
 from .profiler import Profiler
+
+LOG = logging.getLogger(__name__)
 
 
 class Predictor:
@@ -40,6 +51,8 @@ class Predictor:
     multi_scale = False
     multi_scale_hflip = True
     multi_scale_factors = (0.75, 1.0, 1.25)
+    # shard eval batches over the ranks of the process group (--dp-eval)
+    data_parallel = False
 
     def __init__(self, *, checkpoint: Optional[str] = None,
                  model: Optional[models.Model] = None,
@@ -71,6 +84,25 @@ class Predictor:
         self.total_nn_time = 0.0
         self.total_decoder_time = 0.0
         self.total_images = 0
+        self.group = None
+        if self.data_parallel and parallel.world() > 1:
+            self._join_group()
+
+    def _join_group(self) -> None:
+        if not hasattr(self.decoder, 'batch_decoded'):
+            LOG.warning('%s has no batch_decoded tensor path; multi-process '
+                        '--dp-eval disabled', type(self.decoder).__name__)
+            return
+        self.group = parallel.data_group()
+        n = parallel.world(self.group)
+        parallel.replicate(self.model.module, self.group)
+        self.model.refold()
+        LOG.info('multi-process data-parallel eval: %d processes', n)
+        if self.batch_size < n:
+            LOG.warning('batch size %d < %d processes: batches are padded '
+                        'with copies and the extra decodes discarded: set '
+                        '--predictor-batch-size >= %d for actual speedup',
+                        self.batch_size, n, n)
 
     @classmethod
     def cli(cls, parser: argparse.ArgumentParser) -> None:
@@ -82,9 +114,10 @@ class Predictor:
                            default=cls.batch_size, type=int,
                            help='prediction batch size')
         group.add_argument('--dp-eval', dest='predictor_data_parallel',
-                           default=False, action='store_true',
-                           help='data-parallel eval over several cards: not '
-                                'ported, refused')
+                           default=cls.data_parallel, action='store_true',
+                           help='shard prediction batches over the ranks of '
+                                'the process group (eval: one process per '
+                                'card, started by torchrun)')
         group.add_argument('--multi-scale', dest='predictor_multi_scale',
                            default=cls.multi_scale, action='store_true',
                            help='predict at multiple scales and merge')
@@ -100,12 +133,9 @@ class Predictor:
 
     @classmethod
     def configure(cls, args: argparse.Namespace) -> None:
-        if args.predictor_data_parallel:
-            raise NotImplementedError(
-                '--dp-eval (data-parallel eval over several cards) is not '
-                'ported to the PyTorch predictor')
         cls.long_edge = args.long_edge
         cls.batch_size = args.predictor_batch_size
+        cls.data_parallel = args.predictor_data_parallel
         cls.multi_scale = args.predictor_multi_scale
         cls.multi_scale_hflip = args.predictor_multi_scale_hflip
         cls.multi_scale_factors = tuple(args.predictor_multi_scale_factors)
@@ -202,13 +232,22 @@ class Predictor:
         for images, gt_batch, meta_batch in loader:
             self._sync()
             start = time.perf_counter()
+            n = images.shape[0]
+            if self.group is not None:
+                images = self._shard(images)
             fields = self.model(images.to(self.device))
             self._sync()
             self.last_nn_time = time.perf_counter() - start
             self.total_nn_time += self.last_nn_time
 
             start = time.perf_counter()
-            pred_batch = self.decode(fields, meta_batch)
+            if self.group is not None:
+                decoded = self.decoder.batch_decoded(fields)
+                pred_batch = self.decoder.annotations_from_decoded(
+                    type(decoded)(*[parallel.all_gather(t, self.group)[:n]
+                                    for t in decoded]))
+            else:
+                pred_batch = self.decode(fields, meta_batch)
             self._sync()
             self.last_decoder_time = time.perf_counter() - start
             self.total_decoder_time += self.last_decoder_time
@@ -220,6 +259,15 @@ class Predictor:
                 if json_data:
                     preds = [ann.json_data() for ann in preds]
                 yield preds, gts, meta
+
+    def _shard(self, images: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a batch padded to a multiple of the group's
+        size with copies of its last image (the JAX ``_place_batch``)."""
+        pad = (-images.shape[0]) % parallel.world(self.group)
+        if pad:
+            images = torch.cat([images, images[-1:].expand(
+                pad, *images.shape[1:])])
+        return parallel.shard_batch(images, self.group)
 
     # -- multi-scale ----------------------------------------------------
     @staticmethod

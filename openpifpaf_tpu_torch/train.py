@@ -6,8 +6,13 @@ Port of ``openpifpaf_tpu/train.py``: argparse over the ported subsystems'
 given; without CUDA it raises.  The ``visualizer`` flags (``--debug-indices``,
 ``--save-all``) are parsed and configured as by the JAX train CLI
 (``train.py:53,63``), whose training path renders no view either; without
-matplotlib ``--debug-indices`` raises before training.  The checkpoints are the JAX package's npz
-format, which the port's ``Predictor`` and the JAX package both load.
+matplotlib ``--debug-indices`` raises before training.  ``--ddp`` trains
+data parallel in the group that torchrun's ``env://`` variables describe,
+one process per card (``cuda:LOCAL_RANK``, NCCL; gloo on the CPU): each
+rank reads its shard of every epoch, and
+``--batch-size`` is per rank, as the JAX CLI's is per host.  The
+checkpoints are the JAX package's npz format, which the port's
+``Predictor`` and the JAX package both load.
 
 Usage::
 
@@ -25,17 +30,12 @@ import sys
 
 import torch
 
-from . import (datasets, encoder, logger, losses, models, plugins,
+from . import (datasets, encoder, logger, losses, models, parallel, plugins,
                visualizer)
 from .device import resolve_device
 from .training import OptimizeFactory, Trainer
 
 LOG = logging.getLogger(__name__)
-
-# flags of the JAX train CLI whose paths the port does not have yet
-NOT_PORTED = {
-    'ddp': 'multi-host data parallel training',
-}
 
 
 def default_output_file(args) -> str:
@@ -58,9 +58,10 @@ def cli(argv=None) -> argparse.Namespace:
     parser.add_argument('--device', default=None,
                         help='torch device (default: the card; raises '
                              'without CUDA)')
-    for flag, what in NOT_PORTED.items():
-        parser.add_argument(f'--{flag}', default=False, action='store_true',
-                            help=f'{what}: not ported, refused')
+    parser.add_argument('--ddp', default=False, action='store_true',
+                        help='data parallel training over the process group '
+                             "of torchrun's env:// variables (one process "
+                             'per card)')
     logger.cli(parser)
     group = parser.add_argument_group('network configuration')
     group.add_argument('--checkpoint', default=None,
@@ -80,11 +81,6 @@ def cli(argv=None) -> argparse.Namespace:
     visualizer.cli(parser)
     args = parser.parse_args(argv)
 
-    refused = [f'--{flag} ({what})' for flag, what in NOT_PORTED.items()
-               if getattr(args, flag)]
-    if refused:
-        parser.error('not ported to the PyTorch trainer: '
-                     + ', '.join(refused))
     if not args.checkpoint and not args.basenet:
         parser.error('either --checkpoint or --basenet must be given')
     logger.configure(args)
@@ -102,6 +98,8 @@ def cli(argv=None) -> argparse.Namespace:
 def main(argv=None) -> int:
     args = cli(argv)
     device = resolve_device(args.device)
+    if args.ddp:
+        device = parallel.initialize_distributed(device) or device
     torch.manual_seed(args.seed)
     os.makedirs(os.path.dirname(args.output) or '.', exist_ok=True)
 
@@ -128,6 +126,10 @@ def main(argv=None) -> int:
 
     train_loader = datamodule.train_loader()
     val_loader = datamodule.val_loader()
+    if parallel.world() > 1:
+        train_loader, val_loader = (datamodule.distributed_sampler(
+            loader, host_id=parallel.rank(), n_hosts=parallel.world())
+            for loader in (train_loader, val_loader))
     LOG.info('%d training batches, %d validation batches',
              len(train_loader), len(val_loader))
 

@@ -30,6 +30,15 @@ dropout's draws (the checkpoint restores the generator) and leaves the
 BatchNorm running statistics alone (``BatchNorm.update_stats``), so a step
 under ``--remat`` gives the loss, gradients and statistics of one without.
 
+With ``--ddp`` (a process group, ``parallel.initialize_distributed``)
+each rank trains on its shard of the data (``DataModule
+.distributed_sampler``), the BatchNorm statistics and the loss means run
+over the global batch, and the gradients are averaged over the group
+before the clip, so that every rank takes the step of JAX's sharded step
+(``trainer.py:99-101,341-357``) on the global batch; EMA and the
+optimizer run the same on every rank, and only rank 0 writes the log and
+the checkpoints.
+
 Checkpoints, in the JAX package's npz format (``models/checkpoint.py``):
 ``<out>.npz`` and ``<out>.epochNNN.npz`` hold the EMA parameters with the
 current batch statistics; ``<out>.train.npz`` holds the raw parameters,
@@ -56,10 +65,11 @@ from typing import List
 import numpy as np
 import torch
 from torch import nn
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 from torch.utils import checkpoint as checkpoint_util
 
 from .optimize import OptimizeFactory
-from .. import debug_checks
+from .. import debug_checks, parallel
 from ..models import checkpoint as checkpoint_mod
 from ..models import fused_shufflenet
 from ..models.base import BatchNorm
@@ -72,6 +82,11 @@ LOG = logging.getLogger(__name__)
 _REMAT_SAVED = frozenset((
     torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
     torch.ops.aten.bmm.default, torch.ops.aten.convolution.default))
+
+
+# the gradients' all-reduce under ``--ddp`` goes in buckets of this size
+# (DDP's default bucket)
+BUCKET_BYTES = 25 * 2 ** 20
 
 
 def _remat_policy(ctx, op, *args, **kwargs):  # pylint: disable=unused-argument
@@ -147,6 +162,11 @@ class Trainer:
         self.shell = model.module
         self.device = model.device
         self.loss_fn = loss_fn
+        # data parallel (``--ddp``): the process group, if there is one
+        self.group = parallel.data_group()
+        self.is_main = parallel.rank(self.group) == 0
+        if self.group is not None:
+            self._join_group()
         self.optimize_factory = optimize_factory
         self.out = out
         self.step = 0
@@ -159,6 +179,44 @@ class Trainer:
         self.optimizer = self.scheduler = self.schedule = None
         self._log_file = None
         self._preempted = False
+
+    def _join_group(self) -> None:
+        """Rank 0's weights on every rank; the BatchNorm statistics and the
+        loss means over the global batch.  With the gradients averaged
+        over the group (``_average_gradients``) every rank then takes the
+        step that JAX's sharded step takes on the global batch."""
+        parallel.replicate(self.shell, self.group)
+        self.model.refold()
+        for m in self.shell.modules():
+            if isinstance(m, BatchNorm):
+                m.process_group = self.group
+        for loss in getattr(self.loss_fn, 'losses', []):
+            loss.process_group = self.group
+        LOG.info('data parallel: rank %d of %d', parallel.rank(self.group),
+                 parallel.world(self.group))
+
+    def _average_gradients(self) -> None:
+        """Every rank computes the global loss, so the sum of the ranks'
+        gradients is the world size times the global gradient (each
+        all-reduce's backward sums over the group): average them, in
+        buckets of at most ``BUCKET_BYTES``, one all-reduce each."""
+        world = parallel.world(self.group)
+        bucket, size = [], 0
+        for grad in [p.grad for p in self.opt_params] + [None]:
+            if grad is not None and (not bucket or (
+                    size + grad.numel() * grad.element_size() <= BUCKET_BYTES
+                    and grad.dtype == bucket[0].dtype)):
+                bucket.append(grad)
+                size += grad.numel() * grad.element_size()
+                continue
+            if bucket:
+                flat = parallel.all_reduce(_flatten_dense_tensors(bucket),
+                                           self.group).div_(world)
+                for g, reduced in zip(bucket, _unflatten_dense_tensors(
+                        flat, bucket)):
+                    g.copy_(reduced)
+            bucket = [] if grad is None else [grad]
+            size = 0 if grad is None else grad.numel() * grad.element_size()
 
     @property
     def opt_params(self) -> List[torch.Tensor]:
@@ -240,6 +298,8 @@ class Trainer:
             # in JAX, so weight decay and momentum still update it
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.group is not None:
+            self._average_gradients()
         self.optimize_factory.clip_gradients(self.opt_params)
         self.optimizer.step()
         self.scheduler.step()
@@ -265,6 +325,9 @@ class Trainer:
 
     # -- logging --------------------------------------------------------
     def log_line(self, data: dict) -> None:
+        """A json line in ``<out>.log``, on rank 0 only."""
+        if not self.is_main:
+            return
         if self._log_file is None:
             self._log_file = open(self.out + '.log', 'a')  # pylint: disable=consider-using-with
         self._log_file.write(json.dumps(data) + '\n')
@@ -288,6 +351,10 @@ class Trainer:
         return state
 
     def write_checkpoint(self, epoch: int) -> None:
+        """The checkpoint files of ``epoch``, on rank 0 only (the ranks
+        hold the same state)."""
+        if not self.is_main:
+            return
         served = to_jax_variables(self._state_dict(self.served_params()))
         kw = dict(head_metas=self.model.head_metas,
                   basenet_name=self.model.basenet_name,

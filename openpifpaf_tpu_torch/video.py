@@ -5,7 +5,8 @@ Port of ``openpifpaf_tpu/video.py`` (``:36-236``).  Reference parity:
 ``src/openpifpaf/video.py:~30`` — frames in, tracked poses out, with
 ``--start-frame`` / ``--skip-frames``.  Frames come from a directory or a
 glob of images, read by ``image_io`` (PNG without PIL; JPEG and BMP need
-PIL).  With a tracking model the previous frame's backbone features are
+PIL), or from a video file or a camera through OpenCV, where it is
+installed.  With a tracking model the previous frame's backbone features are
 cached: the backbone (K2 on the card) runs on the new frame only, the
 heads on the cached pair, and ``TrackingPose`` decodes and associates
 (K1 on the card).  The first frame pairs with itself.  A model without a
@@ -45,8 +46,10 @@ LOG = logging.getLogger(__name__)
 
 
 class FrameReader:
-    """Frames from a directory or a glob of image files, in name order:
-    ``(index, path, (H, W, 3) uint8 RGB)``."""
+    """Frames as ``(index, name, (H, W, 3) uint8 RGB)``: from a directory
+    or a glob of image files, in name order; else from a video file or a
+    camera (a number) through OpenCV, imported only here (the JAX
+    version's ``video.py:63-85``), with names ``frame_NNNNNN``."""
 
     def __init__(self, source: str, start_frame: int = 0,
                  skip_frames: int = 1, max_frames: int = None):
@@ -58,10 +61,8 @@ class FrameReader:
     def __iter__(self):
         if not (os.path.isdir(self.source)
                 or any(c in self.source for c in '*?[')):
-            raise ValueError(
-                f'source {self.source!r} is not an image directory or glob; '
-                'video files and cameras need OpenCV, which the port does '
-                'not use: extract the frames to PNG files')
+            yield from self._capture()
+            return
         pattern = (os.path.join(self.source, '*')
                    if os.path.isdir(self.source) else self.source)
         paths = sorted(p for p in glob_mod.glob(pattern)
@@ -71,6 +72,34 @@ class FrameReader:
             paths = paths[:self.max_frames]
         for i, path in enumerate(paths):
             yield i, path, read_image(path)
+
+    def _capture(self):
+        try:
+            import cv2  # pylint: disable=import-outside-toplevel
+        except ImportError as e:
+            raise ValueError(
+                f'source {self.source!r} is not an image directory/glob and '
+                'OpenCV is not available for video decoding') from e
+        capture = cv2.VideoCapture(
+            int(self.source) if self.source.isdigit() else self.source)
+        frame_i = -1
+        produced = 0
+        try:
+            while True:
+                ret, frame = capture.read()
+                if not ret:
+                    break
+                frame_i += 1
+                if frame_i < self.start_frame \
+                        or (frame_i - self.start_frame) % self.skip_frames:
+                    continue
+                if self.max_frames and produced >= self.max_frames:
+                    break
+                produced += 1
+                # OpenCV decodes BGR
+                yield frame_i, f'frame_{frame_i:06d}', frame[:, :, ::-1]
+        finally:
+            capture.release()
 
 
 class VideoProcessor:

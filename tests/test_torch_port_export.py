@@ -48,6 +48,15 @@ JAX_F32_TOL = 1e-4
 EAGER_TOL = 1e-6
 
 
+@pytest.fixture(autouse=True)
+def restore_torch_threads():
+    """Some tests here run on one torch thread: give the count back, so
+    that the files this worker runs next keep theirs."""
+    threads = torch.get_num_threads()
+    yield
+    torch.set_num_threads(threads)
+
+
 def seeded_blocks(channels, n_blocks=3, seed=0):
     """The folded stride-1 blocks of a seeded stage of pair width
     ``channels // 2``, BatchNorm statistics away from the identity."""

@@ -1,14 +1,17 @@
 """The PyTorch port stands alone and runs on the card unless told otherwise.
 
-- ``openpifpaf_tpu_torch`` and ``chip_smoke.py`` import no ``jax``,
-  ``flax``, ``optax``, ``PIL`` or ``openpifpaf_tpu`` (the machine with the
-  card has none of them), the training path and the COCO-format data
+- ``openpifpaf_tpu_torch``, ``chip_smoke.py`` and ``multi_gpu_smoke.py``
+  import no ``jax``, ``flax``, ``optax``, ``PIL`` or ``openpifpaf_tpu``
+  (the machine with the card has none of them), the training path and
+  the COCO-format data
   modules included; PIL is reached only through ``importlib`` where the
   JAX package's behaviour needs it (``image_io``'s JPEG reader,
   ``transforms.JpegCompression``), never at import;
-- importing every module of the port loads no ``matplotlib``: the
-  rendering functions of ``show``, ``visualizer`` and ``logs`` import it
-  when they run, never at module level (the card's machine has none);
+- importing every module of the port loads no ``matplotlib`` and no
+  ``cv2``: the rendering functions of ``show``, ``visualizer`` and
+  ``logs`` import matplotlib when they run, ``video.FrameReader`` OpenCV
+  when it opens a video file, never at module level (the card's machine
+  has neither); the top level imports no torch and has no ``register``;
 - entry points (the predict CLI and the detection decoders among them)
   default to ``device='cuda'`` and raise without CUDA instead of falling
   back to the CPU;
@@ -31,7 +34,8 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'PIL', 'openpifpaf_tpu')
 
 def port_sources():
     root = os.path.join(REPO, 'openpifpaf_tpu_torch')
-    files = [os.path.join(REPO, 'chip_smoke.py')]
+    files = [os.path.join(REPO, 'chip_smoke.py'),
+             os.path.join(REPO, 'multi_gpu_smoke.py')]
     for dirpath, _, names in os.walk(root):
         files += [os.path.join(dirpath, n) for n in names if n.endswith('.py')]
     return sorted(files)
@@ -54,6 +58,7 @@ def imported_modules(path):
 def test_port_sources_found():
     files = port_sources()
     assert os.path.join(REPO, 'chip_smoke.py') in files
+    assert os.path.join(REPO, 'multi_gpu_smoke.py') in files
     for name in ('train.py', 'training/trainer.py', 'losses/composite.py',
                  'encoder/cif.py', 'transforms/scale.py',
                  'plugins/toykp/datamodule.py', 'datasets/collate.py',
@@ -98,7 +103,11 @@ def test_port_sources_found():
                  'visualizer/cif.py', 'visualizer/caf.py',
                  'visualizer/cifhr.py', 'visualizer/seeds.py',
                  'visualizer/occupancy.py', 'visualizer/cifdet.py',
-                 'visualizer/tcaf.py', 'logs.py'):
+                 'visualizer/tcaf.py', 'logs.py', 'parallel/__init__.py',
+                 'parallel/mesh.py', 'parallel/spatial.py',
+                 'parallel/scaling.py', 'benchmark_scaling.py',
+                 'benchmark.py', 'configurable.py', 'plugin.py',
+                 'datasets/torch_dataset.py'):
         assert os.path.join(REPO, 'openpifpaf_tpu_torch', name) in files
     assert len(files) > 20
 
@@ -138,7 +147,10 @@ def test_import_loads_no_jax_and_builds_nothing():
         'import subprocess\n'
         'def refuse(*a, **kw): raise AssertionError(f"subprocess at import: {a}")\n'
         'subprocess.run = subprocess.Popen = refuse\n'
-        'import sys, openpifpaf_tpu_torch.predictor, openpifpaf_tpu_torch.ops, '
+        'import sys, openpifpaf_tpu_torch as top\n'
+        # the JAX package's plugin discovery imports the port's top level
+        'assert not hasattr(top, "register") and "torch" not in sys.modules\n'
+        'import openpifpaf_tpu_torch.predictor, openpifpaf_tpu_torch.ops, '
         'openpifpaf_tpu_torch.train, openpifpaf_tpu_torch.eval, '
         'openpifpaf_tpu_torch.metric, openpifpaf_tpu_torch.plugins.toykp, '
         'openpifpaf_tpu_torch.plugins.wholebody.constants, '
@@ -180,10 +192,15 @@ def test_import_loads_no_jax_and_builds_nothing():
         'openpifpaf_tpu_torch.export_coreml, '
         'openpifpaf_tpu_torch.onnx_native, '
         'openpifpaf_tpu_torch.count_ops, '
-        'openpifpaf_tpu_torch.profiler, '
+        'openpifpaf_tpu_torch.profiler, openpifpaf_tpu_torch.parallel, '
+        'openpifpaf_tpu_torch.parallel.scaling, '
+        'openpifpaf_tpu_torch.benchmark_scaling, '
+        'openpifpaf_tpu_torch.benchmark, openpifpaf_tpu_torch.configurable, '
+        'openpifpaf_tpu_torch.plugin, '
+        'openpifpaf_tpu_torch.datasets.torch_dataset, '
         'openpifpaf_tpu_torch.encoder.native as native, '
         'openpifpaf_tpu_torch.kernels as k\n'
-        'import openpifpaf_tpu_torch.plugins as p; p.register()\n'
+        'import openpifpaf_tpu_torch.plugin as p; p.register()\n'
         f'bad = [m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r}]\n'
         'assert not bad, bad\n'
         'assert not k._LIBS and native._LIB is None\n')
@@ -209,11 +226,11 @@ def module_level_imports(path):
 
 
 def test_import_loads_no_matplotlib():
-    """matplotlib is imported inside rendering functions only, and
-    importing every module of the port in a fresh interpreter loads
-    none of it."""
+    """matplotlib is imported inside rendering functions only (and OpenCV
+    inside ``FrameReader``), and importing every module of the port in a
+    fresh interpreter loads none of them."""
     at_import = {os.path.relpath(p, REPO) for p in port_sources()
-                 if any(m.split('.')[0] == 'matplotlib'
+                 if any(m.split('.')[0] in ('matplotlib', 'cv2')
                         for m in module_level_imports(p))}
     assert not at_import
     code = (
@@ -225,7 +242,8 @@ def test_import_loads_no_matplotlib():
         '    importlib.import_module(name)\n'
         'assert len(names) > 100, len(names)\n'
         'assert "openpifpaf_tpu_torch.logs" in sys.modules\n'
-        'bad = [m for m in sys.modules if m.split(".")[0] == "matplotlib"]\n'
+        'bad = [m for m in sys.modules\n'
+        '       if m.split(".")[0] in ("matplotlib", "cv2")]\n'
         'assert not bad, bad\n')
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, '-c', code], check=True, env=env,

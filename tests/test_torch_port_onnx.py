@@ -106,6 +106,15 @@ BASES = {
 }
 
 
+@pytest.fixture(autouse=True)
+def restore_torch_threads():
+    """Some tests here run on one torch thread: give the count back, so
+    that the files this worker runs next keep theirs."""
+    threads = torch.get_num_threads()
+    yield
+    torch.set_num_threads(threads)
+
+
 def cifdet_metas(hm):
     return [hm.CifDet('cifdet', 'testexport',
                       categories=['person', 'car', 'dog'])]

@@ -12,10 +12,16 @@ bits and the BatchNorm backward cancels heavily, so two correct bf16
 steps part widely: JAX's own bf16 plan and bf16 canonical graph differ by
 0.179 (global relative L2 of the change), and either differs from JAX's
 f32 step by 0.24.  The port's f32 step must fail the bounds.
+
+The port's bf16 plan step moves with torch's CPU thread count (the
+canonical graph's and both f32 steps do not), so the file runs on
+``TORCH_THREADS`` threads whatever count an earlier file in the worker
+left behind.
 """
 
 import jax.numpy as jnp
 import pytest
+import torch
 
 from test_torch_port_train_default import (  # noqa: F401  (fixture)
     batch, jax_default_steps, port_default_steps)
@@ -30,6 +36,18 @@ from test_torch_port_train_default import (  # noqa: F401  (fixture)
 # `total` and `leaf` sit between the bf16 and the f32 readings, so a step
 # that lost its autocast fails them; the losses cannot tell the two apart
 BF16_BOUNDS = dict(loss=1e-3, total=0.22, leaf=0.3, stats=1e-2)
+# the readings above were taken on this many threads; the bf16 plan step on
+# 1 / 2 / 4 / 6 threads reads 0.238 (0.356) / 0.219 (0.308) / 0.219
+# (0.308) / 0.227 (0.295), the other three steps as above on every count
+TORCH_THREADS = 8
+
+
+@pytest.fixture(scope='module', autouse=True)
+def pinned_torch_threads():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(TORCH_THREADS)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope='module')

@@ -128,13 +128,17 @@ def test_json_lines_equal_jax(stream):
     assert ids[0] & ids[-1]
 
 
-def test_frame_reader(stream):
+def test_frame_reader(stream, monkeypatch):
+    """A directory source; any other source is a video file or a camera
+    for OpenCV (``test_torch_port_tools.py`` holds that path to JAX's), and
+    without OpenCV the reader refuses it."""
     _, frames, _ = stream
     got = list(video.FrameReader(frames, start_frame=1, skip_frames=2))
     assert [i for i, _, _ in got] == [0, 1]
     assert [os.path.basename(p) for _, p, _ in got] == ['001.png', '003.png']
     with PIL.Image.open(got[1][1]) as im:
         np.testing.assert_array_equal(got[1][2], np.asarray(im))
+    monkeypatch.setitem(sys.modules, 'cv2', None)
     with pytest.raises(ValueError, match='OpenCV'):
         list(video.FrameReader(os.path.join(frames, '000.png')))
 
