@@ -4,12 +4,8 @@ Port of ``openpifpaf_tpu/encoder/native.py``: the CIF and CAF painting loops
 of ``cif.py`` and ``caf.py`` in ``csrc/encoders.cpp``, a shared library with
 a plain C interface (no Python or PyTorch headers), bound with ctypes.  It
 is built at first use, never at import, with the host's C++ compiler
-(``$CXX``, else ``c++``) and the JAX package's flags, into
-``build/openpifpaf_tpu_torch/`` beside the package, named by a hash of the
-source, the compiler, the flags and the host's CPU (``-march=native``
-code runs only where it was built).  Several processes (test workers, the
-data loader's workers) may build at once: each writes a file of its own
-and renames it into place.
+(``$CXX``, else ``c++``) and the JAX package's flags, by
+``host_library.build``.
 
 Unlike the JAX package, which falls back to numpy when the build fails
 (``native.py:40-52``), a failed build or load raises with the compiler's
@@ -20,69 +16,28 @@ painters.  ``PAINTS`` counts the images painted here, per process.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-from pathlib import Path
 
 import numpy as np
 
-from ..kernels import BUILD_DIR
+from .. import host_library
 
-SOURCE = Path(__file__).resolve().parent.parent / 'csrc' / 'encoders.cpp'
-CXX_FLAGS = ['-O3', '-march=native', '-fPIC', '-shared', '-std=c++17',
-             '-Wall']
+SOURCE = host_library.CSRC / 'encoders.cpp'
 
 PAINTS = 0   # images painted by the native library in this process
 
 _LIB = None
 
 
-def compiler() -> str:
-    return os.environ.get('CXX') or 'c++'
+def library_path():
+    return host_library.library_path(SOURCE, 'encoders')
 
 
-def _host_cpu() -> bytes:
-    """What ``-march=native`` reads: the CPU's model and flags."""
-    try:
-        with open('/proc/cpuinfo', 'rb') as f:
-            lines = f.read().splitlines()
-    except OSError:
-        return b''
-    return b'\n'.join(sorted({line for line in lines
-                              if line.startswith((b'model name', b'flags'))}))
-
-
-def library_path() -> Path:
-    digest = hashlib.sha1(b'\0'.join([
-        SOURCE.read_bytes(), compiler().encode(),
-        ' '.join(CXX_FLAGS).encode(), _host_cpu()]))
-    return BUILD_DIR / f'libencoders_{digest.hexdigest()[:12]}.so'
-
-
-def build() -> Path:
+def build():
     """Compile ``csrc/encoders.cpp`` unless it is built; raises with the
     compiler's output when it fails."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    command = [compiler(), *CXX_FLAGS, '-o', str(tmp), str(SOURCE)]
-    try:
-        result = subprocess.run(command, capture_output=True, text=True,
-                                timeout=300, check=False)
-    except OSError as e:
-        raise RuntimeError(f'native painters: cannot run {command[0]!r} '
-                           f'({e}); pass use_native=False for the numpy '
-                           'painters') from e
-    if result.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f'native painters: {" ".join(command)} failed (exit '
-            f'{result.returncode}):\n{result.stdout}{result.stderr}')
-    os.replace(tmp, out)
-    return out
+    return host_library.build(
+        SOURCE, 'encoders', 'native painters',
+        '; pass use_native=False for the numpy painters')
 
 
 def library() -> ctypes.CDLL:

@@ -1,32 +1,49 @@
-"""Image files without PIL: a PNG reader and writer on ``zlib`` and numpy.
+"""Image files without PIL: PNG, BMP and JPEG readers, a PNG writer.
 
-The machine with the card has no PIL, so the port reads its frames itself:
-8-bit greyscale, greyscale with alpha, RGB and RGBA PNG files, not
-interlaced, with all five row filters (None, Sub, Up, Average, Paeth, PNG
-specification section 9).  ``read_image`` gives (H, W, 3) uint8 RGB, as
-PIL's ``convert('RGB')`` does: grey replicated, alpha dropped.  JPEG and
-BMP files go through PIL when it is importable and raise a ``ValueError``
-naming the missing decoder otherwise.  ``write_png`` writes such files
-with a chosen row filter (the tests read them back, and ``chip_smoke.py``
-writes its video frames with it).
+The machine with the card has no PIL, so the port reads its images
+itself.  ``read_image`` gives (H, W, 3) uint8 RGB, what the JAX package
+gets from PIL's ``Image.open(path).convert('RGB')``, for:
+
+- PNG (``zlib`` and numpy): every colour type (greyscale, RGB, palette,
+  greyscale with alpha, RGBA) at every bit depth the specification allows
+  (1, 2, 4, 8 and 16), with or without Adam7 interlacing, all five row
+  filters (PNG specification sections 7-9).  Grey is replicated, alpha
+  and ``tRNS`` dropped, a palette looked up, depths below 8 scaled to 8
+  bits as PIL scales them (x255, x85, x17); at 16 bits colour samples
+  keep their high byte, and greyscale clips at 255, as PIL's ``I;16`` ->
+  RGB conversion does;
+- BMP: uncompressed 24- and 32-bit ``BI_RGB`` and ``BI_BITFIELDS`` (8-bit
+  masks) files and 8-bit palette files, bottom-up or top-down; other
+  variants (1, 4 and 16 bits, RLE, embedded JPEG or PNG) raise;
+- JPEG: ``jpeg.decode`` (``csrc/jpeg.cpp``).
+
+``write_png`` writes 8-bit PNG files with a chosen row filter (the tests
+read them back, and ``chip_smoke.py`` writes its video frames with it).
 """
 
 from __future__ import annotations
 
-import importlib
 import os
 import struct
 import zlib
 
 import numpy as np
 
+from . import jpeg
+
 SIGNATURE = b'\x89PNG\r\n\x1a\n'
-# PNG colour type -> channels (8-bit samples)
-CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+# PNG colour type -> channels
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# bit depths the PNG specification allows for each colour type
+DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+          6: (8, 16)}
+# Adam7: (first row, first column, row step, column step) of each pass
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+         (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 FILTERS = ('none', 'sub', 'up', 'average', 'paeth')
 PNG_SUFFIXES = ('.png',)
-PIL_SUFFIXES = ('.jpg', '.jpeg', '.bmp')
-SUFFIXES = PNG_SUFFIXES + PIL_SUFFIXES
+BMP_SUFFIXES = ('.bmp',)
+SUFFIXES = PNG_SUFFIXES + BMP_SUFFIXES + jpeg.SUFFIXES
 
 
 def _chunks(data: bytes):
@@ -86,31 +103,91 @@ def _unfilter(raw: np.ndarray, height: int, stride: int,
     return out
 
 
+def _unpack(rows: np.ndarray, width: int, channels: int,
+            depth: int) -> np.ndarray:
+    """Unfiltered rows (H, stride) -> (H, W, C) samples (uint8, or uint16
+    at depth 16)."""
+    height = rows.shape[0]
+    if depth == 16:
+        return rows.view('>u2').astype(np.uint16).reshape(
+            height, width, channels)
+    if depth == 8:
+        return rows.reshape(height, width, channels)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    samples = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return samples.reshape(height, -1)[:, :width * channels].reshape(
+        height, width, channels)
+
+
+def _image_data(raw: np.ndarray, width: int, height: int, channels: int,
+                depth: int, interlace: int) -> np.ndarray:
+    """The decompressed IDAT stream -> (H, W, C) samples."""
+    bits = channels * depth
+    bpp = max(1, bits // 8)
+    if not interlace:
+        stride = (width * bits + 7) // 8
+        if raw.size != height * (stride + 1):
+            raise ValueError('PNG image data has the wrong size')
+        return _unpack(_unfilter(raw, height, stride, bpp), width, channels,
+                       depth)
+    out = np.zeros((height, width, channels),
+                   np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for r0, c0, rs, cs in ADAM7:
+        h, w = -(-(height - r0) // rs), -(-(width - c0) // cs)
+        if h <= 0 or w <= 0:
+            continue
+        stride = (w * bits + 7) // 8
+        size = h * (stride + 1)
+        if pos + size > raw.size:
+            raise ValueError('PNG image data has the wrong size')
+        rows = _unfilter(raw[pos:pos + size], h, stride, bpp)
+        out[r0::rs, c0::cs] = _unpack(rows, w, channels, depth)
+        pos += size
+    if pos != raw.size:
+        raise ValueError('PNG image data has the wrong size')
+    return out
+
+
 def read_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, C) uint8, C the file's channels (1, 2, 3, 4)."""
+    """PNG bytes -> (H, W, C) uint8, C the file's channels (1 grey, 2 grey
+    and alpha, 3 RGB, 4 RGBA; a palette image gives its colours, 3), the
+    samples at 8 bits as PIL's ``convert('RGB')`` reads them (see the
+    module's docstring)."""
     if not data.startswith(SIGNATURE):
         raise ValueError('not a PNG file')
-    header, idat = None, []
+    header, idat, palette = None, [], None
     for kind, body in _chunks(data):
         if kind == b'IHDR':
             header = struct.unpack('>IIBBBBB', body)
+        elif kind == b'PLTE':
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b'IDAT':
             idat.append(body)
     if header is None:
         raise ValueError('PNG without an IHDR chunk')
     width, height, depth, colour, _, _, interlace = header
-    if depth != 8 or colour not in CHANNELS or interlace:
+    if colour not in DEPTHS or depth not in DEPTHS[colour] or interlace > 1:
         raise ValueError(
             f'PNG with bit depth {depth}, colour type {colour}, interlace '
-            f'{interlace}: only 8-bit greyscale, grey+alpha, RGB and RGBA '
-            'without interlacing are read')
-    channels = CHANNELS[colour]
-    stride = width * channels
+            f'{interlace}: not a valid combination')
     raw = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8)
-    if raw.size != height * (stride + 1):
-        raise ValueError('PNG image data has the wrong size')
-    return _unfilter(raw, height, stride, channels).reshape(
-        height, width, channels)
+    samples = _image_data(raw, width, height, CHANNELS[colour], depth,
+                          interlace)
+    if colour == 3:
+        if palette is None:
+            raise ValueError('PNG palette image without a PLTE chunk')
+        # indices past the palette read black
+        full = np.zeros((256, 3), np.uint8)
+        full[:len(palette)] = palette[:256]
+        return full[samples[:, :, 0]]
+    if depth == 16:
+        if colour == 0:
+            return np.minimum(samples, 255).astype(np.uint8)
+        return (samples >> 8).astype(np.uint8)
+    if depth < 8:
+        return (samples * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    return samples
 
 
 def to_rgb(image: np.ndarray) -> np.ndarray:
@@ -120,22 +197,70 @@ def to_rgb(image: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(image[:, :, :3])
 
 
+def read_bmp(data: bytes) -> np.ndarray:
+    """BMP bytes -> (H, W, 3) uint8 RGB: uncompressed 24- and 32-bit
+    ``BI_RGB`` and ``BI_BITFIELDS`` (8-bit masks) and 8-bit palette
+    files, bottom-up or top-down."""
+    if data[:2] != b'BM' or len(data) < 26:
+        raise ValueError('not a BMP file')
+    offset, = struct.unpack('<I', data[10:14])
+    header, = struct.unpack('<I', data[14:18])
+    if header not in (40, 52, 56, 108, 124) or len(data) < 14 + header:
+        raise ValueError(f'BMP with a {header}-byte header is not supported')
+    width, height, _, bpp, compression = struct.unpack('<iiHHI', data[18:34])
+    colours, = struct.unpack('<I', data[46:50])
+    top_down = height < 0
+    height = abs(height)
+    if compression not in (0, 3) or bpp not in (8, 24, 32) or (
+            compression == 3 and bpp == 8):
+        raise ValueError(
+            f'BMP with {bpp} bits per pixel and compression {compression} '
+            'is not supported: only uncompressed 24- and 32-bit (BI_RGB, '
+            'BI_BITFIELDS) and 8-bit palette files are read')
+    stride = (width * bpp + 31) // 32 * 4
+    if width <= 0 or offset + stride * height > len(data):
+        raise ValueError('BMP pixel data is truncated')
+    rows = np.frombuffer(data, np.uint8, stride * height, offset).reshape(
+        height, stride)
+    if not top_down:
+        rows = rows[::-1]
+    if bpp == 8:
+        start = 14 + header
+        n = colours or 256
+        table = np.frombuffer(data[start:start + n * 4], np.uint8)
+        palette = np.zeros((256, 3), np.uint8)
+        table = table[:table.size // 4 * 4].reshape(-1, 4)[:256]
+        palette[:len(table)] = table[:, 2::-1]
+        return palette[rows[:, :width]]
+    pixels = rows[:, :width * bpp // 8].reshape(height, width, bpp // 8)
+    if compression == 0:
+        return np.ascontiguousarray(pixels[:, :, 2::-1])
+    masks = struct.unpack('<III', data[54:66])
+    value = np.zeros((height, width), np.uint32)
+    for i in range(bpp // 8):
+        value |= pixels[:, :, i].astype(np.uint32) << (8 * i)
+    out = np.empty((height, width, 3), np.uint8)
+    for c, mask in enumerate(masks):
+        shift = (mask & -mask).bit_length() - 1
+        if mask == 0 or mask >> shift != 0xFF:
+            raise ValueError(f'BMP bit field mask 0x{mask:08x} is not '
+                             'supported: only 8-bit channels are read')
+        out[:, :, c] = (value >> shift) & 0xFF
+    return out
+
+
 def read_image(path: str) -> np.ndarray:
     """An image file -> (H, W, 3) uint8 RGB."""
     suffix = os.path.splitext(path)[1].lower()
+    if suffix not in SUFFIXES:
+        raise ValueError(f'{path}: no reader for {suffix!r} files')
+    with open(path, 'rb') as f:
+        data = f.read()
     if suffix in PNG_SUFFIXES:
-        with open(path, 'rb') as f:
-            return to_rgb(read_png(f.read()))
-    if suffix in PIL_SUFFIXES:
-        try:
-            pil_image = importlib.import_module('PIL.Image')
-        except ImportError as e:
-            raise ValueError(
-                f'{path}: {suffix} needs the PIL decoder, which is not '
-                'installed; convert the frames to PNG') from e
-        with pil_image.open(path) as im:
-            return np.asarray(im.convert('RGB'))
-    raise ValueError(f'{path}: no reader for {suffix!r} files')
+        return to_rgb(read_png(data))
+    if suffix in BMP_SUFFIXES:
+        return read_bmp(data)
+    return jpeg.decode(data)
 
 
 def _filter_rows(rows: np.ndarray, bpp: int, kind: int) -> np.ndarray:
@@ -172,7 +297,7 @@ def png_bytes(image: np.ndarray, row_filter: str = 'up') -> bytes:
     if image.ndim == 2:
         image = image[:, :, None]
     height, width, channels = image.shape
-    colour = {c: t for t, c in CHANNELS.items()}[channels]
+    colour = {1: 0, 2: 4, 3: 2, 4: 6}[channels]
     kind = FILTERS.index(row_filter)
     rows = _filter_rows(image.reshape(height, width * channels), channels,
                         kind)

@@ -86,6 +86,12 @@ class BatchNorm(nn.BatchNorm2d):
         group = self.process_group
         if group is not None and dist.get_world_size(group) > 1:
             return self._synced_forward(x, channels, group)
+        if x.device.type == 'cpu':
+            # the CPU's channels-last batch_norm (the training plan's
+            # layout) splits each channel's sums across threads, so its
+            # bf16 rounding moves with the thread count; the NCHW kernel
+            # sums a channel on one thread
+            x = x.contiguous()
         if self.update_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),

@@ -6,12 +6,15 @@ and write one ``<image>.predictions.json`` per image, poses and boxes
 mixed, with ``--json-output`` (a file, a directory, or beside the image
 when given without a value), and with ``-o/--image-output`` the image with
 its annotations drawn (``show``, matplotlib) as ``<image>.predictions.jpg``
-(JAX ``predict.py:72-93``).  Images are read by ``image_io``: PNG always,
-JPEG and BMP where PIL is importable.  Prediction runs on the card unless
+(JAX ``predict.py:72-93``).  Images are read by ``image_io``: PNG, JPEG
+and BMP, without PIL.  Prediction runs on the card unless
 ``--device cpu`` is given; without CUDA it raises.  Without matplotlib,
 ``-o`` and ``--debug-indices`` raise before any prediction.  As in the JAX
 package, ``--debug-indices`` renders no decoder view here: ``Predictor``
-decodes through ``batch_fields``, which has no hook.
+decodes through ``batch_fields``, which has no hook.  ``--batch-size``
+sets the predictor's batch (as ``--predictor-batch-size``); the JAX
+CLI's ``--batch-size`` is its data modules' flag, which it never
+configures, so there it changes nothing.
 
 Usage::
 

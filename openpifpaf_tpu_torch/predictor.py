@@ -9,8 +9,8 @@ image coordinates.  ``dataset``/``dataset_loader`` do the same for a data
 module's eval batches (images already preprocessed by
 ``preprocess_factory``'s transforms), and ``merge_annotations`` with
 ``multiscale_variants`` make the multi-scale eval.  ``images(paths)`` and
-``image(path)`` read image files (``datasets.ImageList``: PNG always, JPEG
-and BMP where PIL is importable) through the same eval transforms, at one
+``image(path)`` read image files (``datasets.ImageList``: PNG, JPEG and
+BMP, without PIL) through the same eval transforms, at one
 scale or, with ``multi_scale``, at several (``images_multiscale``).
 With ``data_parallel`` (``--dp-eval``) in a process group of more than
 one rank, each eval batch is padded to a multiple of the group's size

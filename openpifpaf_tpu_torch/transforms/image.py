@@ -17,9 +17,9 @@ integer arithmetic, so that they give PIL's pixels without PIL:
   columns, with the box radius PIL derives from sigma
   (``_gaussian_blur_radius``), 24-bit fixed-point weights and a rounding
   to uint8 after every pass (``ImagingLineBoxBlur32``).
-- ``JpegCompression`` goes through PIL where it can be imported and
-  raises a ``ValueError`` naming the missing encoder otherwise, as
-  ``image_io`` does for JPEG files.
+- ``JpegCompression`` round-trips through the port's JPEG encoder and
+  decoder (``jpeg.py``), which write and read what PIL's ``save(buf,
+  'JPEG', quality=q)`` and ``open(buf).convert('RGB')`` write and read.
 
 ``ImageToTensor`` is the port of ``ImageToNumpy`` (``image.py:63-73``): the
 normalized (3, H, W) float32 tensor (``eval.normalize``), the layout the
@@ -29,13 +29,12 @@ given.
 
 from __future__ import annotations
 
-import importlib
-import io
 import math
 
 import numpy as np
 import torch
 
+from .. import jpeg
 from .base import Preprocess
 from .eval import normalize
 
@@ -148,8 +147,8 @@ class Blur(Preprocess):
 
 
 class JpegCompression(Preprocess):
-    """A JPEG round trip at a random quality, through PIL's encoder and
-    decoder; without PIL it raises a ``ValueError``."""
+    """A JPEG round trip at a random quality, through the port's encoder
+    and decoder."""
 
     def __init__(self, quality_range=(50, 100), *, rng: np.random.Generator):
         self.quality_range = quality_range
@@ -158,20 +157,9 @@ class JpegCompression(Preprocess):
     def __call__(self, image, anns, meta):
         meta = Preprocess.init_meta(image, meta)
         quality = int(self.rng.integers(*self.quality_range))
-        try:
-            pil_image = importlib.import_module('PIL.Image')
-        except ImportError as e:
-            raise ValueError(
-                'JpegCompression needs the PIL JPEG encoder, which is not '
-                'installed') from e
         array = to_levels(image).permute(1, 2, 0).to(torch.uint8).numpy()
-        buf = io.BytesIO()
-        pil_image.fromarray(np.ascontiguousarray(array), 'RGB').save(
-            buf, 'JPEG', quality=quality)
-        buf.seek(0)
-        with pil_image.open(buf) as decoded:
-            out = np.asarray(decoded.convert('RGB'))
-        return (torch.from_numpy(out.copy()).permute(2, 0, 1).to(image.dtype),
+        out = jpeg.decode(jpeg.encode(array, quality))
+        return (torch.from_numpy(out).permute(2, 0, 1).to(image.dtype),
                 anns, meta)
 
 

@@ -4,8 +4,8 @@ pose) pipeline.
 Port of ``openpifpaf_tpu/video.py`` (``:36-236``).  Reference parity:
 ``src/openpifpaf/video.py:~30`` — frames in, tracked poses out, with
 ``--start-frame`` / ``--skip-frames``.  Frames come from a directory or a
-glob of images, read by ``image_io`` (PNG without PIL; JPEG and BMP need
-PIL), or from a video file or a camera through OpenCV, where it is
+glob of images, read by ``image_io`` (PNG, JPEG and BMP, without PIL),
+or from a video file or a camera through OpenCV, where it is
 installed.  With a tracking model the previous frame's backbone features are
 cached: the backbone (K2 on the card) runs on the new frame only, the
 heads on the cached pair, and ``TrackingPose`` decodes and associates

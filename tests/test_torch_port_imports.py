@@ -4,9 +4,9 @@
   import no ``jax``, ``flax``, ``optax``, ``PIL`` or ``openpifpaf_tpu``
   (the machine with the card has none of them), the training path and
   the COCO-format data
-  modules included; PIL is reached only through ``importlib`` where the
-  JAX package's behaviour needs it (``image_io``'s JPEG reader,
-  ``transforms.JpegCompression``), never at import;
+  modules included; no port module reaches PIL through ``importlib``
+  either (``image_io`` reads JPEG, BMP and PNG and
+  ``transforms.JpegCompression`` round-trips without it);
 - importing every module of the port loads no ``matplotlib`` and no
   ``cv2``: the rendering functions of ``show``, ``visualizer`` and
   ``logs`` import matplotlib when they run, ``video.FrameReader`` OpenCV
@@ -107,7 +107,8 @@ def test_port_sources_found():
                  'parallel/mesh.py', 'parallel/spatial.py',
                  'parallel/scaling.py', 'benchmark_scaling.py',
                  'benchmark.py', 'configurable.py', 'plugin.py',
-                 'datasets/torch_dataset.py'):
+                 'datasets/torch_dataset.py', 'jpeg.py', 'jpeg_plain.py',
+                 'host_library.py'):
         assert os.path.join(REPO, 'openpifpaf_tpu_torch', name) in files
     assert len(files) > 20
 
@@ -132,12 +133,12 @@ def lazy_pil_imports(path):
 
 
 def test_pil_only_where_the_jax_behaviour_needs_it():
-    """JPEG files and ``JpegCompression`` go through PIL, imported in the
-    call; nothing else reaches it."""
+    """No port module reaches PIL, not even in a call: JPEG, BMP and PNG
+    files and ``JpegCompression`` go through the port's own readers and
+    codec (``image_io``, ``jpeg``)."""
     users = {os.path.relpath(p, REPO) for p in port_sources()
              if lazy_pil_imports(p)}
-    assert users == {'openpifpaf_tpu_torch/image_io.py',
-                     'openpifpaf_tpu_torch/transforms/image.py'}
+    assert users == set()
 
 
 def test_import_loads_no_jax_and_builds_nothing():
@@ -156,6 +157,7 @@ def test_import_loads_no_jax_and_builds_nothing():
         'openpifpaf_tpu_torch.plugins.wholebody.constants, '
         'openpifpaf_tpu_torch.video, openpifpaf_tpu_torch.signal_, '
         'openpifpaf_tpu_torch.image_io, openpifpaf_tpu_torch.ops.tracking, '
+        'openpifpaf_tpu_torch.jpeg, openpifpaf_tpu_torch.jpeg_plain, '
         'openpifpaf_tpu_torch.decoder.tracking_pose, '
         'openpifpaf_tpu_torch.models.tracking_base, '
         'openpifpaf_tpu_torch.plugins.posetrack, '

@@ -28,6 +28,8 @@ is within one grey level of PIL's, not equal to it).
   plus the tolerances above.
 - ``--debug-checks``: a NaN in a field raises in the decode's gathers, for
   CifCaf and CifDet; without the flag the same fields decode.
+- ``--batch-size``: the port's sets the predictor's batch; JAX's is an
+  unconfigured data-module flag and changes nothing (a difference kept).
 """
 
 import argparse
@@ -292,6 +294,48 @@ def test_predict_cli_matches_jax(png_images, tmp_path, monkeypatch):
             assert abs(g['score'] - w['score']) <= 0.001 + 1e-4
     assert port_predict.main(['--checkpoint', checkpoint,
                               '--device=cpu', '-q']) == 1
+
+
+JAX_PREDICT_ARGS = """
+import json, sys
+from openpifpaf_tpu import predict
+from openpifpaf_tpu.datasets import DataModule
+from openpifpaf_tpu.predictor import Predictor
+args = predict.cli(sys.argv[1:])
+print(json.dumps(dict(batch_size=args.batch_size,
+                      predictor_batch_size=args.predictor_batch_size,
+                      predictor=Predictor.batch_size,
+                      data_module=DataModule.batch_size)))
+"""
+
+
+def test_batch_size_flag_differs_from_jax(tmp_path, monkeypatch):
+    """``predict --batch-size 3``: the port's flag sets the predictor's
+    batch (dest ``predictor_batch_size``, as ``--predictor-batch-size``);
+    JAX's is its data modules' flag (``datasets.cli``), which its predict
+    CLI never configures, so it changes nothing there."""
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS='cpu',
+               OMP_NUM_THREADS='1')
+    proc = subprocess.run(
+        [sys.executable, '-c', JAX_PREDICT_ARGS, 'x.png', '--batch-size=3'],
+        env=env, cwd=str(tmp_path), capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    jax_args = json.loads(proc.stdout.splitlines()[-1])
+    assert jax_args['batch_size'] == 3
+    assert jax_args['predictor_batch_size'] == jax_args['predictor'] == 1
+    assert jax_args['data_module'] != 3
+
+    keep_configuration(
+        monkeypatch, Predictor, decoder.Decoder, debug_checks,
+        importlib.import_module('openpifpaf_tpu_torch.decoder.factory'),
+        *decoder.DECODERS)
+    args = port_predict.cli(['x.png', '--checkpoint=m.npz', '--batch-size=3'])
+    assert args.predictor_batch_size == Predictor.batch_size == 3
+    assert not hasattr(args, 'batch_size')
+    assert port_predict.cli(['x.png', '--checkpoint=m.npz',
+                             '--predictor-batch-size=2']) \
+        .predictor_batch_size == Predictor.batch_size == 2
 
 
 def test_predict_cli_refusals(capsys):

@@ -13,10 +13,13 @@ steps part widely: JAX's own bf16 plan and bf16 canonical graph differ by
 0.179 (global relative L2 of the change), and either differs from JAX's
 f32 step by 0.24.  The port's f32 step must fail the bounds.
 
-The port's bf16 plan step moves with torch's CPU thread count (the
-canonical graph's and both f32 steps do not), so the file runs on
-``TORCH_THREADS`` threads whatever count an earlier file in the worker
-left behind.
+The port's bf16 plan step once moved with torch's CPU thread count: the
+CPU's channels-last ``batch_norm`` splits each channel's sums across
+threads, and the plan runs its BatchNorms channels-last.
+``BatchNorm.batch_forward`` now hands the CPU kernel an NCHW-contiguous
+tensor, and ``test_plan_steps_bf16`` holds the step at 1, 2, 4 and 8
+threads.  The file runs on ``TORCH_THREADS`` threads whatever count an
+earlier file in the worker left behind, and restores that count.
 """
 
 import jax.numpy as jnp
@@ -30,15 +33,17 @@ from test_torch_port_train_default import (  # noqa: F401  (fixture)
 # bf16 step through the same forward -- losses, parameter change rel L2
 # over all (at the worst parameter holding 1% of it), running statistics:
 #   bf16, canonical: 3.5e-4, 0.185 (0.253), 2.4e-3
-#   bf16, plan:      3.5e-4, 0.203 (0.284), 2.9e-3
+#   bf16, plan:      1.5e-4, 0.218 (0.286), 2.8e-3 (on 1, 2, 4 and 8
+#                    threads alike)
 #   f32, canonical:  1.7e-4, 0.237 (0.307), 3.8e-3
 #   f32, plan:       1.1e-4, 0.244 (0.320), 3.6e-3
 # `total` and `leaf` sit between the bf16 and the f32 readings, so a step
 # that lost its autocast fails them; the losses cannot tell the two apart
 BF16_BOUNDS = dict(loss=1e-3, total=0.22, leaf=0.3, stats=1e-2)
-# the readings above were taken on this many threads; the bf16 plan step on
-# 1 / 2 / 4 / 6 threads reads 0.238 (0.356) / 0.219 (0.308) / 0.219
-# (0.308) / 0.227 (0.295), the other three steps as above on every count
+# the readings above were taken on this many threads, and read the same on
+# 1, 2 and 4 (``tests/torch_port_bf16_threads.py``); before the NCHW
+# BatchNorm the bf16 plan step read 0.203 (0.284) on 8 threads and 0.238
+# (0.356) on 1
 TORCH_THREADS = 8
 
 
@@ -109,9 +114,15 @@ def test_default_steps_bf16(batch, jax_bf16_steps):
     assert within(gaps, BF16_BOUNDS), gaps
 
 
-def test_plan_steps_bf16(batch, jax_bf16_steps):
-    """The port's plan against JAX's default step, its plan."""
-    gaps = bf16_gaps(batch, jax_bf16_steps, True)
+@pytest.mark.parametrize('threads', [1, 2, 4, 8])
+def test_plan_steps_bf16(batch, jax_bf16_steps, threads):
+    """The port's plan against JAX's default step, its plan, on each of
+    several torch CPU thread counts."""
+    torch.set_num_threads(threads)
+    try:
+        gaps = bf16_gaps(batch, jax_bf16_steps, True)
+    finally:
+        torch.set_num_threads(TORCH_THREADS)
     assert within(gaps, BF16_BOUNDS), gaps
 
 

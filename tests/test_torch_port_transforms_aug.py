@@ -4,7 +4,8 @@ Each transform runs alone on the same image (a PIL image in the JAX
 package, a (3, H, W) tensor in uint8 levels in the port) and the same
 annotations, with its random draws from generators seeded alike (or from a
 stub that returns a chosen value).  Tolerances: images within 1 grey level
-(``RotateBy90``, ``Deinterlace`` and ``ImputeNaN`` exactly equal);
+(``RotateBy90``, ``Deinterlace``, ``ImputeNaN`` and ``JpegCompression``
+exactly equal);
 keypoints, boxes and every meta value within 1e-4; the same annotations
 kept.  The cases are those of ``tests/test_transforms.py`` and
 ``tests/test_misc_parity.py``, plus ``Blur`` at four sigmas (PIL's
@@ -15,6 +16,7 @@ which both packages raise (a fault of the reference, kept).
 """
 
 import importlib
+import sys
 
 import numpy as np
 import PIL.Image
@@ -197,12 +199,21 @@ def test_color_tint_draws():
 
 
 def test_jpeg_compression():
+    """The port's JPEG round trip (its own encoder and decoder) gives PIL's
+    pixels exactly."""
     jax_t = jax_transforms.JpegCompression(rng=np.random.default_rng(2))
     port_t = transforms.JpegCompression(rng=np.random.default_rng(2))
-    assert_same(*run_both(jax_t, port_t))
+    assert_same(*run_both(jax_t, port_t), image_atol=0)
 
 
 def test_jpeg_compression_without_pil(monkeypatch):
+    """With PIL blocked (as on the card's machine) ``JpegCompression``
+    gives what it gives with PIL present, and that is JAX's image."""
+    def draw():
+        t = transforms.JpegCompression(rng=np.random.default_rng(0))
+        return t(image_pair()[1], [], None)[0]
+
+    with_pil = draw()
     real = importlib.import_module
 
     def no_pil(name, *args):
@@ -211,9 +222,17 @@ def test_jpeg_compression_without_pil(monkeypatch):
         return real(name, *args)
 
     monkeypatch.setattr(importlib, 'import_module', no_pil)
-    t = transforms.JpegCompression(rng=np.random.default_rng(0))
-    with pytest.raises(ValueError, match='JPEG encoder'):
-        t(image_pair()[1], [], None)
+    for name in [m for m in sys.modules if m == 'PIL' or
+                 m.startswith('PIL.')]:
+        monkeypatch.setitem(sys.modules, name, None)
+    with pytest.raises(ImportError):
+        importlib.import_module('PIL.Image')
+    assert torch.equal(draw(), with_pil)
+    monkeypatch.undo()
+    want = jax_transforms.JpegCompression(rng=np.random.default_rng(0))(
+        image_pair()[0], [], None)[0]
+    np.testing.assert_array_equal(
+        with_pil.permute(1, 2, 0).numpy(), np.asarray(want, np.float32))
 
 
 def test_random_choice_and_its_probability_fault():

@@ -10,13 +10,15 @@
   track ids per frame and keypoints within 1e-3.
 - The PNG reader against PIL on greyscale, grey with alpha, RGB and RGBA
   files written with each of the five row filters, and on PIL's own
-  files; JPEG goes through PIL when it is importable and raises a
-  ``ValueError`` naming the decoder when it is not.
+  files; BMP and 16-bit PNG as PIL reads them, with PIL blocked
+  (``tests/test_torch_port_image_io.py`` holds every PNG and BMP variant,
+  ``tests/test_torch_port_jpeg.py`` JPEG).
 - ``--video-output`` and ``--show`` run on the tracking checkpoint (one
   ``NNNNNN.jpg`` per frame; ``--show`` has no effect, as in the JAX video
   CLI), and the CLI without CUDA and without ``--device`` raises.
 """
 
+import importlib
 import io
 import json
 import os
@@ -177,22 +179,26 @@ def test_png_reader_on_pil_files(mode, tmp_path):
 
 
 def test_other_formats(tmp_path, monkeypatch):
+    """BMP and 16-bit PNG read as PIL reads them, with PIL blocked too (the
+    card's machine has none): a 16-bit greyscale PNG as PIL's ``I;16`` ->
+    RGB conversion gives it, clipped at 255."""
     image = np.random.default_rng(0).integers(0, 256, (9, 11, 3), np.uint8)
     path = str(tmp_path / 'x.bmp')
     PIL.Image.fromarray(image).save(path)
-    np.testing.assert_array_equal(image_io.read_image(path), image)
+    deep = str(tmp_path / 'deep.png')
+    PIL.Image.fromarray(image[:, :, 0].astype(np.uint16) * 256).save(deep)
+    with PIL.Image.open(deep) as im:
+        want_deep = np.asarray(im.convert('RGB'))
 
     def no_pil(name):
         raise ImportError(f'No module named {name!r}')
 
-    monkeypatch.setattr(image_io.importlib, 'import_module', no_pil)
-    with pytest.raises(ValueError, match='PIL decoder'):
-        image_io.read_image(path)
-    with pytest.raises(ValueError, match='16-bit|bit depth'):
-        buf = io.BytesIO()
-        PIL.Image.fromarray(image[:, :, 0].astype(np.uint16) * 256) \
-            .save(buf, 'PNG')
-        image_io.read_png(buf.getvalue())
+    monkeypatch.setattr(importlib, 'import_module', no_pil)
+    monkeypatch.setitem(sys.modules, 'PIL', None)
+    np.testing.assert_array_equal(image_io.read_image(path), image)
+    np.testing.assert_array_equal(image_io.read_image(deep), want_deep)
+    with pytest.raises(ValueError, match='no reader'):
+        image_io.read_image(str(tmp_path / 'x.tif'))
 
 
 def test_refused_flags_and_no_cuda(stream, monkeypatch, tmp_path):
