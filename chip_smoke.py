@@ -218,7 +218,23 @@ Phases, in order; any failure raises and exits non-zero:
    with ``--cross-talk 0.2 --head-dropout 0.1`` (finite loss) and a
    ``--head-upsample-stride 2`` model's f32 forward, card vs CPU;
 17. export: the export CLIs as subprocesses on the card, all started at
-   once: (a) ``python -m openpifpaf_tpu_torch.export_program`` of seeded
+   once: (a) ``python -m openpifpaf_tpu_torch.export_program
+   --include-decoder`` of serve's seeded, bias-shifted sn2k16 (a
+   checkpoint; bf16, 641 px, batch 8, and with ``--dynamic-batch``): the
+   forward and the CifCaf decode as one program, loaded and run on 3 staged
+   batches, each held to eager ``Model.__call__`` plus
+   ``CifCaf.batch_decoded`` (every ``DecodedPoses`` tensor equal, or the
+   poses matched one to one within ``hold_card_to_cpu``'s tolerances where
+   a near-tie decides; which of the two held is printed) with K1 launched
+   once through the operator ``openpifpaf_tpu_torch::cif_hr_accumulate``
+   and K2 3 times per batch (counts set to 0 before and read after), the
+   CUDA-synchronizing calls per batch of the program and of the eager
+   decode (CUDA's sync debug mode) beside the eager decode's host syncs,
+   ms per image of both (CUDA events), the trace seconds, the dynamic
+   program at batch 1 and 8, and K1 held to its plain version and timed at
+   the program's inputs (the two decoded CLIs start before the backbones
+   phase, since tracing the decode takes a minute on the host, and are
+   collected here); ``export_program`` without the decode of seeded
    sn2k16 with cocokp's heads, bf16, 641 px, batch 8, the ``.pt2`` loaded
    and run on 3 staged batches, each held to eager ``Model.__call__``
    (every head equal, ``torch.equal``) with K2 launched 3
@@ -281,10 +297,12 @@ Phases, in order; any failure raises and exits non-zero:
    ``coco_launches`` (per data module), ``posetrack_launches``,
    ``show_launches`` (K1 per ``__call__``: plain, indices empty and set),
    ``parallel_launches`` (K1 and K2 per eval run and rank, K1 per band)
-   and (K2) ``export_launches`` from those phases' runs, ``wholebody``,
+   and ``export_launches`` (K1 in the decoded programs' runs, K2 in every
+   exported program's) from those phases' runs, ``wholebody``,
    ``tracking``, ``detect``, ``detect_cifar10``, ``backbones``, ``coco``,
    ``posetrack``, ``show``, ``parallel`` (K1 at a band of two) and
-   ``export`` its hold and times at those shapes), the script's seconds, the card's name and power limit, then
+   ``export`` (K1 at the decoded program's inputs) its hold and times at
+   those shapes), the script's seconds, the card's name and power limit, then
    the last line ``{"ok": true, "device": {...}}``.
 
 It imports only the port, torch and numpy, and matplotlib where it can be
@@ -5327,14 +5345,52 @@ EXPORT_SIZE = ['--input-height', str(EXPORT_EDGE), '--input-width',
                str(EXPORT_EDGE)]
 
 
-def export_clis(tmp: str) -> dict:
-    """The export CLIs on the card, all started at once: the program of
-    seeded sn2k16 with cocokp's heads (bf16) at batch 8 and with
+def start_decoded_exports(port, tmp: str) -> dict:
+    """Serve's bias-shifted sn2k16 written as the checkpoint
+    ``tmp/shifted.npz``, and ``export_program --include-decoder`` of it
+    (bf16, 641 px) at batch 8 and with ``--dynamic-batch`` started in the
+    background: tracing the decode takes a minute on the card machine's
+    host, so the script starts them before the backbones phase and
+    ``export_clis`` collects them.  Returns name -> (start, process)."""
+    from openpifpaf_tpu_torch.plugins.coco.cocokp import CocoKp
+
+    metas = CocoKp().head_metas
+    shifted = port.models.factory('shufflenetv2k16', metas, device='cuda',
+                                  seed=0)
+    shift_head_biases(shifted, metas)
+    port.models.checkpoint.save(
+        f'{tmp}/shifted.npz', variables=port.models.to_jax_variables(
+            shifted.module.state_dict()), head_metas=metas,
+        basenet_name='shufflenetv2k16', base_stride=16)
+    decoded = ['export_program', f'--checkpoint={tmp}/shifted.npz',
+               '--include-decoder', *EXPORT_SIZE]
+    return start_exports({
+        'program decoder': [*decoded, '--batch-size', str(EXPORT_BATCH),
+                            '--outfile', f'{tmp}/decoder.pt2'],
+        'program decoder dynamic': [*decoded, '--dynamic-batch', '--outfile',
+                                    f'{tmp}/decoder_dynamic.pt2']})
+
+
+def start_exports(runs) -> dict:
+    """Each ``runs`` entry, ``(module, *args)``, started as ``python -m
+    openpifpaf_tpu_torch.<module>`` on the card (TF32 off), output and
+    errors to one pipe.  Returns name -> (start, process)."""
+    env = dict(os.environ, PYTHONPATH=REPO, NVIDIA_TF32_OVERRIDE='0')
+    return {name: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, '-m', f'openpifpaf_tpu_torch.{module}', *args],
+        cwd=REPO, env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)) for name, (module, *args) in runs.items()}
+
+
+def export_clis(tmp: str, decoded: dict) -> dict:
+    """The export CLIs on the card, all started at once, and the decoded
+    ones (``start_decoded_exports``) collected: the program of seeded
+    sn2k16 with cocokp's heads (bf16) at batch 8 and with
     ``--dynamic-batch``, ONNX with ``--verify`` for sn2k16 and swin_t (f32,
     TF32 off), count_ops, and the CoreML CLI.  Returns name -> (exit code,
     output, seconds)."""
     sn = ['--basenet', 'shufflenetv2k16']
-    runs = {
+    procs = dict(decoded, **start_exports({
         'program': ['export_program', *sn, '--batch-size',
                     str(EXPORT_BATCH), '--outfile', f'{tmp}/static.pt2',
                     *EXPORT_SIZE],
@@ -5348,14 +5404,7 @@ def export_clis(tmp: str) -> dict:
                         *EXPORT_SIZE],
         'count_ops': ['count_ops', *sn, '--long-edge', str(EXPORT_EDGE)],
         'coreml': ['export_coreml', *sn],
-    }
-    env = dict(os.environ, PYTHONPATH=REPO, NVIDIA_TF32_OVERRIDE='0')
-    procs = {}
-    for name, (module, *args) in runs.items():
-        procs[name] = (time.perf_counter(), subprocess.Popen(
-            [sys.executable, '-m', f'openpifpaf_tpu_torch.{module}', *args],
-            cwd=REPO, env=env, text=True, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT))
+    }))
     results = {}
     for name, (start, proc) in procs.items():
         try:
@@ -5406,6 +5455,121 @@ def hold_program(pc, run, model, x, label: str) -> float:
     print(f'{label}: K2 {calls} calls ({kernels} CUDA kernels), every head '
           f'equal to eager (torch.equal; max|d| {worst:.3e})', flush=True)
     return worst
+
+
+def hold_decoded(port, run, model, decoder, x, label: str) -> dict:
+    """One call of a program exported with ``--include-decoder`` against
+    eager ``Model.__call__`` plus ``CifCaf.batch_decoded`` on the same
+    images: K1 launched once (through the operator
+    ``openpifpaf_tpu_torch::cif_hr_accumulate``, 2 CUDA kernels) and K2 3
+    times (26 CUDA kernels), counts set to 0 before the call and read
+    after; the seven ``DecodedPoses`` tensors equal (``torch.equal``), or,
+    where they are not, the poses matched one to one within
+    ``hold_card_to_cpu``'s tolerances (xyv 1e-3, score 1e-4, the overflow
+    counters, the unclaimed-seed one within one per image): the program
+    and eager run the same kernels, so only a near-tie decided in the last
+    ulp could part them.  Returns which of the two held and the counts."""
+    cif_hr, pc = port.cif_hr, port.pair_chain
+    cif_hr.KERNEL_LAUNCHES = cif_hr.CUDA_LAUNCHES = 0
+    pc.KERNEL_LAUNCHES = pc.CUDA_LAUNCHES = 0
+    with torch.no_grad():
+        got = run(x)
+    counts = (cif_hr.KERNEL_LAUNCHES, cif_hr.CUDA_LAUNCHES,
+              pc.KERNEL_LAUNCHES, pc.CUDA_LAUNCHES)
+    port.common.HOST_SYNCS = 0
+    want = decoder.batch_decoded(model(x))
+    eager_syncs = port.common.HOST_SYNCS
+    if counts != (1, 2, len(SN2K16_CHAINS), KERNELS_PER_BLOCK * SN2K16_BLOCKS):
+        raise AssertionError(f'{label}: K1 {counts[0]} calls ({counts[1]} '
+                             f'CUDA kernels), K2 {counts[2]} calls '
+                             f'({counts[3]} CUDA kernels), want 1 (2) and 3 '
+                             f'(26)')
+    if len(got) != len(want):
+        raise AssertionError(f'{label}: {len(got)} outputs')
+    equal = all(g.dtype == w.dtype and g.shape == w.shape
+                and torch.equal(g, w) for g, w in zip(got, want))
+    got_np = [t.cpu().numpy() for t in got]
+    want_np = [t.cpu().numpy() for t in want]
+    if equal:
+        held = 'every DecodedPoses tensor equal to eager (torch.equal)'
+    else:
+        same_count, dxyv, dscore = pose_difference(got_np, want_np)
+        agree = same_counters(got_np, want_np)
+        held = (f'not equal; poses matched one to one, max|dxyv| '
+                f'{dxyv:.3e} (limit 1e-3), max|dscore| {dscore:.3e} (limit '
+                f'1e-4), counters agree: {agree}')
+        if not (same_count and agree and dxyv <= 1e-3 and dscore <= 1e-4):
+            raise AssertionError(f'{label}: decoded program differs from '
+                                 f'eager: {held}')
+    print(f'{label}: K1 {counts[0]} call through the operator ({counts[1]} '
+          f'CUDA kernels), K2 {counts[2]} calls ({counts[3]} CUDA kernels); '
+          f'valid poses {got_np[3].sum(1).tolist()}; {held}; eager decode '
+          f'host syncs {eager_syncs}', flush=True)
+    return dict(equal=equal, k1=counts[0], k2=counts[2],
+                eager_syncs=eager_syncs)
+
+
+def decoded_program(port, card: str, tmp: str, clis, batches) -> dict:
+    """(a) The programs with ``--include-decoder`` on the staged batches:
+    the static one on each (``hold_decoded``), its CUDA-synchronizing
+    calls per batch (CUDA's sync debug mode) beside the eager decode's,
+    ms per image of both (CUDA events), the trace seconds; the
+    ``--dynamic-batch`` one at batch 1 and 8; K1 held to its plain version
+    and timed at the inputs the program hands it."""
+    from openpifpaf_tpu_torch import export_program
+
+    model = port.models.factory(checkpoint=f'{tmp}/shifted.npz',
+                                device='cuda', bf16=True)
+    decoder = port.decoder.factory(model.head_metas, device='cuda')
+    program = export_program.load_exported(f'{tmp}/decoder.pt2')
+    calls = sum(str(n.target).startswith(
+        'openpifpaf_tpu_torch.cif_hr_accumulate')
+        for n in program.graph.nodes)
+    if calls != 1:
+        raise AssertionError(f'decoded program: {calls} K1 operator calls')
+    run = program.module()
+    held = [hold_decoded(port, run, model, decoder, x,
+                         f'decoded program, batch {i}')
+            for i, x in enumerate(batches)]
+
+    def eager(x):
+        return decoder.batch_decoded(model(x))
+
+    with torch.no_grad():
+        program_syncs = syncing_calls(lambda: run(batches[0]))
+    eager_syncs = syncing_calls(lambda: eager(batches[0]))
+    with torch.no_grad():
+        program_ms = per_image_ms(run, batches)
+    eager_ms = per_image_ms(eager, batches)
+    traced = {name: re.search(r'traced in (\S+) s', clis[name][1]).group(1)
+              for name in ('program decoder', 'program decoder dynamic')}
+    print(f'decoded program (sn2k16 bf16, bias-shifted heads, {EXPORT_EDGE} '
+          f'px, batch {EXPORT_BATCH}): CUDA-synchronizing calls per batch '
+          f'{program_syncs} (sync debug mode), eager forward + decode '
+          f'{eager_syncs} (HOST_SYNCS {held[0]["eager_syncs"]}); ms per '
+          f'image, median [min, max] of 12 chained batches (CUDA events): '
+          f'program {program_ms}, eager Model.__call__ + '
+          f'CifCaf.batch_decoded {eager_ms}; traced in '
+          f'{traced["program decoder"]} s (static), '
+          f'{traced["program decoder dynamic"]} s (dynamic batch) ({card})',
+          flush=True)
+
+    dynamic = export_program.load_exported(
+        f'{tmp}/decoder_dynamic.pt2').module()
+    for n in (1, EXPORT_BATCH):
+        held.append(hold_decoded(port, dynamic, model, decoder,
+                                 batches[1][:n],
+                                 f'--dynamic-batch decoded program at batch '
+                                 f'{n}'))
+    with torch.no_grad():
+        captured = spy_cif_hr(port, lambda: run(batches[2]))
+    (args, kwargs), = captured
+    k1 = measure_cif_hr(port.cif_hr, 'decoded program', args, kwargs)
+    k1['shape'] = (f'(B, F, N) {tuple(args[0].shape)} -> '
+                   f'{tuple(kwargs["out_hw"])}')
+    return dict(k1=k1, k1_launches=sum(h['k1'] for h in held),
+                k2_launches=sum(h['k2'] for h in held),
+                equal=[h['equal'] for h in held])
 
 
 def per_image_ms(fn, batches) -> str:
@@ -5469,8 +5633,10 @@ def hold_chain_op(pc, chains) -> dict:
     return total
 
 
-def export_phase(port, card: str, tmp: str) -> dict:
-    """Export: the CLIs on the card (``export_clis``); the
+def export_phase(port, card: str, tmp: str, decoded_clis: dict) -> dict:
+    """Export: the CLIs on the card (``export_clis``, the decoded ones
+    started before the backbones phase); the programs with the decode
+    (``decoded_program``); the
     exported sn2k16 program (bf16, 641 px, batch 8) on 3 staged batches
     held to eager ``Model.__call__`` with K2 launched 3 times per batch,
     ms per image of both; the ``--dynamic-batch`` program at batch 1 and
@@ -5483,14 +5649,17 @@ def export_phase(port, card: str, tmp: str) -> dict:
 
     pc = port.pair_chain
     start = time.perf_counter()
-    clis = export_clis(tmp)
+    clis = export_clis(tmp, decoded_clis)
     for name, (rc, out, seconds) in clis.items():
-        print(f'{name} CLI: exit {rc} in {seconds:.1f} s; '
+        since = (' since its start before the backbones phase'
+                 if name in decoded_clis else '')
+        print(f'{name} CLI: exit {rc} in {seconds:.1f} s{since}; '
               f'{out.strip().splitlines()[-1]}', flush=True)
 
+    batches = export_batches()
+    decoded = decoded_program(port, card, tmp, clis, batches)
     model = port.models.factory('shufflenetv2k16', CocoKp().head_metas,
                                 device='cuda', bf16=True, seed=0)
-    batches = export_batches()
     program = export_program.load_exported(f'{tmp}/static.pt2')
     run = program.module()
     launches = 0
@@ -5556,7 +5725,8 @@ def export_phase(port, card: str, tmp: str) -> dict:
         pc.apply_chain = launch_chain
     k2 = hold_chain_op(pc, chains)
     print(f'export phase: {time.perf_counter() - start:.1f} s', flush=True)
-    return dict(launches=launches, k2=k2)
+    return dict(launches=launches + decoded['k2_launches'], k2=k2,
+                k1=decoded['k1'], k1_launches=decoded['k1_launches'])
 
 
 # ------------------------------------------------------------------- show
@@ -6667,16 +6837,21 @@ def main() -> int:
         tracked = tracking_phase(port, card, tmp)
         phase('detect')
         detected = detect_phase(port, card, tmp)
-    phase('backbones')
-    backbones = backbones_phase(port, card)
-    with tempfile.TemporaryDirectory() as tmp:
-        phase('coco')
-        coco = coco_phase(port, card, tmp)
-        phase('posetrack')
-        posetrack = posetrack_phase(port, card, tmp, coco['paths'])
-    with tempfile.TemporaryDirectory() as tmp:
-        phase('export')
-        exported = export_phase(port, card, tmp)
+    with tempfile.TemporaryDirectory() as export_tmp:
+        phase('backbones')
+        decoded_clis = start_decoded_exports(port, export_tmp)
+        try:
+            backbones = backbones_phase(port, card)
+            with tempfile.TemporaryDirectory() as tmp:
+                phase('coco')
+                coco = coco_phase(port, card, tmp)
+                phase('posetrack')
+                posetrack = posetrack_phase(port, card, tmp, coco['paths'])
+            phase('export')
+            exported = export_phase(port, card, export_tmp, decoded_clis)
+        finally:
+            for _, proc in decoded_clis.values():
+                proc.kill()
     with tempfile.TemporaryDirectory() as tmp:
         phase('show')
         shown = show_phase(port, card, served, tmp)
@@ -6691,7 +6866,8 @@ def main() -> int:
                   + [r['max_abs_err'] for r in k1_backbones]
                   + [r['max_abs_err'] for r in (coco['k1'], coco['det']['k1'],
                                                 coco['crowd']['k1'],
-                                                posetrack['k1'], shown['k1'])]
+                                                posetrack['k1'], shown['k1'],
+                                                exported['k1'])]
                   + [paralleled['k1_max_abs_err']]
                   + [r['max_abs_err'] for kind, r in evaluated['checks']
                      if kind == 'cif_hr'])
@@ -6737,6 +6913,8 @@ def main() -> int:
         'posetrack': at_new_shape(posetrack['k1']),
         'show_launches': {k: c['k1'] for k, c in shown['counts'].items()},
         'show': at_new_shape(shown['k1']),
+        'export_launches': exported['k1_launches'],
+        'export': at_new_shape(exported['k1']),
         'parallel_launches': dict(paralleled['counts']['k1'],
                                   bands=paralleled['bands']),
         'parallel': at_new_shape(paralleled['k1']),

@@ -9,14 +9,26 @@ canonical graph for any other backbone) is traced by ``torch.export`` and saved 
 ``load_exported`` reads it back and ``.module()`` runs it with no model
 code, on the device it was exported on.  The input is NCHW float32.
 
-``--include-decoder`` is refused: the port's decode reads a flag back to
-the host on every fixpoint iteration (``ops/common.py:while_loop``), so it
-is not one traceable program until the decode moves onto the device.
+``--include-decoder`` chains the CifCaf decode of a CifCaf model onto the
+forward (``ServedDecode``), as JAX's ``export_stablehlo`` does: the program
+returns the seven ``DecodedPoses`` tensors (xyv, joint_scales, scores,
+valid, n_dropped_caf, n_dropped_cif, n_dropped_poses), with K1 as the
+operator ``openpifpaf_tpu_torch::cif_hr_accumulate`` and the decode's
+fixpoint loops as ``torch._higher_order_ops.while_loop``
+(``ops/common.py:while_loop``).  Its configuration is the decoder's
+defaults at the export's input size; the CifHr profiles follow the device
+(f32 on the card, bf16-rounded on the CPU), so a program exported on the
+card equals the card's eager decode.  ``--debug-checks`` is never enabled
+here: its host reads would not trace.  Tracing the decode takes tens of
+seconds.
 
 Usage::
 
     python -m openpifpaf_tpu_torch.export_program --checkpoint model.npz \\
         --input-height 641 --input-width 641 --outfile model.pt2
+    # forward and decode, on the CPU (drop --device cpu for the card)
+    python -m openpifpaf_tpu_torch.export_program --device cpu \\
+        --basenet shufflenetv2k16 --include-decoder --outfile poses.pt2
 """
 
 from __future__ import annotations
@@ -25,19 +37,16 @@ import argparse
 import logging
 import os
 import sys
+import time
 
 import torch
 
-from . import logger, models
+from . import decoder, logger, models
+from .decoder.cifcaf import CifCaf
 from .models.tracking_base import TrackingModel
+from .ops import pipeline
 
 LOG = logging.getLogger(__name__)
-
-DECODER_REFUSAL = (
-    '--include-decoder is not available in the PyTorch port: its CifCaf '
-    'decode reads a flag back to the host on every fixpoint iteration '
-    '(openpifpaf_tpu_torch/ops/common.py while_loop), so it is not one '
-    'traceable program; it waits for the decode on the device')
 
 
 def model_cli(parser: argparse.ArgumentParser,
@@ -73,22 +82,48 @@ def model_from_args(args):
     return models.factory(args.basenet, CocoKp().head_metas, **options)
 
 
+class ServedDecode(torch.nn.Module):
+    """``Model.served_forward()`` followed by the CifCaf decode of its CIF
+    and CAF heads (``fields[head_index]``, as JAX's program reads them) at
+    the static configuration ``CifCaf.config_for(input_hw)``: the module
+    that ``export_forward(..., include_decoder=True)`` traces."""
+
+    def __init__(self, model, input_hw):
+        super().__init__()
+        dec = decoder.factory(model.head_metas, device=model.device)
+        if not isinstance(dec, CifCaf):
+            raise ValueError('--include-decoder supports CifCaf models only')
+        self.forward_module = model.served_forward()
+        self.cif_meta, self.caf_meta = dec.cif_meta, dec.caf_meta
+        self.config = dec.config_for(input_hw)
+
+    def forward(self, images: torch.Tensor):
+        fields = self.forward_module(images)
+        return tuple(pipeline.decode_cifcaf(
+            fields[self.cif_meta.head_index].float(),
+            fields[self.caf_meta.head_index].float(),
+            cif_meta=self.cif_meta, caf_meta=self.caf_meta,
+            config=self.config))
+
+
 def export_forward(model, input_hw, *, batch_size: int = 1,
                    include_decoder: bool = False,
                    dynamic_batch: bool = False):
     """Trace ``Model.__call__`` of ``model`` on NCHW float32 images of
-    ``input_hw``; returns the ``torch.export.ExportedProgram``.  With
+    ``input_hw``, with ``include_decoder`` followed by the CifCaf decode
+    (``ServedDecode``); returns the ``torch.export.ExportedProgram``.  With
     ``dynamic_batch`` the batch is symbolic (for a tracking model, twice a
     symbolic number of frame pairs)."""
-    if include_decoder:
-        raise NotImplementedError(DECODER_REFUSAL)
-    module = model.served_forward()
+    module = (ServedDecode(model, input_hw) if include_decoder
+              else model.served_forward())
     tracking = isinstance(model, TrackingModel)
     dynamic_shapes = None
     if dynamic_batch:
         # an example of 2 images (2 pairs): torch.export specializes 1;
-        # a tracking program's pair count stays from 2 on (a slice of the
-        # symbolic batch is specialized at 1)
+        # a tracking program's pair count stays from 2 on: at 1 pair the
+        # program fails its guard ``(1 + x.size()[0]) // 2 != 1``, which
+        # torch's channels-last stride check (``_prims_common``
+        # ``is_channels_last_contiguous_2d``) adds on the pair slices
         if tracking:
             batch_size, dim = 4, 2 * torch.export.Dim('pairs', min=2)
         else:
@@ -106,7 +141,7 @@ def export_forward(model, input_hw, *, batch_size: int = 1,
 
 def load_exported(path: str):
     """A saved program, with the operators it calls registered first."""
-    from .ops import pair_chain  # noqa: F401  pylint: disable=unused-import
+    from .ops import cif_hr, pair_chain  # noqa: F401  pylint: disable=unused-import
     return torch.export.load(path)
 
 
@@ -126,11 +161,9 @@ def main(argv=None) -> int:
     parser.add_argument('--include-decoder', default=False,
                         action='store_true',
                         help='chain the CifCaf decode into the exported '
-                             'program (not available in the port)')
+                             'program')
     args = parser.parse_args(argv)
     logger.configure(args)
-    if args.include_decoder:
-        raise NotImplementedError(DECODER_REFUSAL)
 
     model = model_from_args(args)
     if isinstance(model, TrackingModel) and args.batch_size % 2:
@@ -138,14 +171,17 @@ def main(argv=None) -> int:
                     'raising --batch-size %d -> %d', args.batch_size,
                     args.batch_size + 1)
         args.batch_size += 1
+    start = time.perf_counter()
     exported = export_forward(
         model, (args.input_height, args.input_width),
-        batch_size=args.batch_size, dynamic_batch=args.dynamic_batch)
+        batch_size=args.batch_size, include_decoder=args.include_decoder,
+        dynamic_batch=args.dynamic_batch)
+    seconds = time.perf_counter() - start
     torch.export.save(exported, args.outfile)
     size = os.path.getsize(args.outfile)
     LOG.info('wrote %s (%d bytes, device %s)', args.outfile, size,
              model.device)
-    print(f'{args.outfile}: {size} bytes')
+    print(f'{args.outfile}: {size} bytes, traced in {seconds:.1f} s')
     return 0
 
 

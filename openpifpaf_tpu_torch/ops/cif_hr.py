@@ -18,13 +18,18 @@ PyTorch version of the output — the profiles and an ``einsum`` over cells,
 the translation of ``cif_hr.py:138-161``.  The plain versions serve CPU
 tensors only; a CUDA tensor launches the kernel or raises.  The kernel
 computes f32 profiles (like the Pallas kernel), so on the card the decode
-has ``profile_bf16=False`` semantics.
+has ``profile_bf16=False`` semantics.  ``accumulate`` reaches both through
+the registered operator ``openpifpaf_tpu_torch::cif_hr_accumulate``
+(``cif_hr_op``: CUDA implementation the kernel, CPU implementation
+``accumulate_plain``, a fake one for tracing, no autograd), which
+``torch.export`` records as one call.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import List
 
 import torch
 
@@ -113,15 +118,9 @@ def accumulate(conf: torch.Tensor, x_px: torch.Tensor, y_px: torch.Tensor,
         y = torch.gather(y, 2, idx)
         sigma = torch.gather(sigma, 2, idx)
 
-    kw = dict(out_hw=out_hw, spacing=float(config.spacing),
-              truncate=float(config.truncate),
-              y_offset_px=float(y_offset_px), clip=clip)
-    if v.device.type == 'cpu':
-        hr = accumulate_plain(v, x, y, sigma,
-                              profile_bf16=config.profile_bf16, **kw)
-    else:
-        hr = cif_hr_accumulate(v.contiguous(), x.contiguous(), y.contiguous(),
-                               sigma.contiguous(), **kw)
+    hr = cif_hr_op(v, x, y, sigma, [int(s) for s in out_hw],
+                   float(config.spacing), float(config.truncate),
+                   float(y_offset_px), bool(clip), config.profile_bf16)
     if single:
         hr, n_dropped = hr[0], n_dropped[0]
     return (hr, n_dropped) if return_overflow else hr
@@ -307,3 +306,56 @@ def cif_hr_tile_bins(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     _raise_on('cif_hr_tile_bins', rc)
     CUDA_LAUNCHES += 1
     return masks
+
+
+def _launch(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+            sigma: torch.Tensor, out_hw: List[int], spacing: float,
+            truncate: float, y_offset_px: float, clip: bool,
+            profile_bf16: bool) -> torch.Tensor:
+    """The operator's CUDA implementation: the kernel
+    (``cif_hr_accumulate``) on contiguous copies where the cells are not
+    (a traced program drops the caller's ``contiguous()`` where the
+    example was, and its runtime strides may differ).  It computes f32
+    profiles whatever ``profile_bf16`` says: on the card the decode has
+    ``profile_bf16=False`` semantics."""
+    del profile_bf16
+    return cif_hr_accumulate(v.contiguous(), x.contiguous(), y.contiguous(),
+                             sigma.contiguous(), out_hw=tuple(out_hw),
+                             spacing=spacing, truncate=truncate,
+                             y_offset_px=y_offset_px, clip=clip)
+
+
+def _plain(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+           sigma: torch.Tensor, out_hw: List[int], spacing: float,
+           truncate: float, y_offset_px: float, clip: bool,
+           profile_bf16: bool) -> torch.Tensor:
+    """The operator's CPU implementation: ``accumulate_plain``."""
+    return accumulate_plain(v, x, y, sigma, out_hw=tuple(out_hw),
+                            spacing=spacing, truncate=truncate,
+                            y_offset_px=y_offset_px, clip=clip,
+                            profile_bf16=profile_bf16)
+
+
+# K1 as a registered operator, so that ``torch.export`` records the splat
+# as one call (``export_program --include-decoder``); ``accumulate`` calls
+# it on the cells' device: the kernel for CUDA tensors, the plain version
+# for CPU tensors, no other switch.  Registered through ``Library`` rather
+# than ``torch.library.custom_op``, whose kernels run under
+# ``torch._disable_dynamo``: on Python 3.12 that wrapper hides the
+# enclosing frames from cProfile, and ``--profile-decoder`` profiles the
+# decode that calls K1.
+_LIBRARY = torch.library.Library('openpifpaf_tpu_torch', 'FRAGMENT')
+_LIBRARY.define(
+    'cif_hr_accumulate(Tensor v, Tensor x, Tensor y, Tensor sigma, '
+    'int[] out_hw, float spacing, float truncate, float y_offset_px, '
+    'bool clip, bool profile_bf16) -> Tensor')
+_LIBRARY.impl('cif_hr_accumulate', _launch, 'CUDA')
+_LIBRARY.impl('cif_hr_accumulate', _plain, 'CPU')
+cif_hr_op = torch.ops.openpifpaf_tpu_torch.cif_hr_accumulate.default
+
+
+@torch.library.register_fake('openpifpaf_tpu_torch::cif_hr_accumulate')
+def _fake(v, x, y, sigma, out_hw, spacing, truncate, y_offset_px, clip,
+          profile_bf16):
+    b, f, _ = v.shape
+    return v.new_empty((b, f, *out_hw), dtype=torch.float32)

@@ -39,17 +39,40 @@ def while_loop(cond: Callable, body: Callable, state: Tuple[torch.Tensor, ...],
     for images whose result will be discarded.  ``active`` (B,) optionally
     restricts the loop to a subset of images (an enclosing loop's mask).
     Each iteration costs one host sync to read the flag (``HOST_SYNCS``).
+
+    Under ``torch.export`` the same loop is recorded as the higher-order
+    operator ``torch._higher_order_ops.while_loop`` (``jax.lax.while_loop``'s
+    counterpart), the mask carried in front of the state: its condition is
+    ``running.any()``, its body ``step`` below, so the traced and the host
+    loop compute the same iterations.  ``cond`` and ``body`` must then be
+    traceable: outputs of the state's shapes, dtypes and devices, no
+    Python branch on a tensor, writes only to tensors they created.
     """
     global HOST_SYNCS
-    while True:
+
+    def running_of(state):
         running = cond(state)
-        if active is not None:
-            running = running & active
+        return running if active is None else running & active
+
+    def step(running, state):
+        new = body(state, running)
+        return tuple(_where_batch(running, n, o) for n, o in zip(new, state))
+
+    if torch.compiler.is_exporting():
+        def hop_body(running, *state):
+            state = step(running, state)
+            return (running_of(state), *state)
+
+        out = torch._higher_order_ops.while_loop(
+            lambda running, *_: running.any(), hop_body,
+            (running_of(state), *state))
+        return tuple(out[1:])
+    while True:
+        running = running_of(state)
         HOST_SYNCS += 1
         if not bool(running.any()):
             return state
-        new = body(state, running)
-        state = tuple(_where_batch(running, n, o) for n, o in zip(new, state))
+        state = step(running, state)
 
 
 def _where_batch(mask: torch.Tensor, new: torch.Tensor,

@@ -10,7 +10,8 @@ places its single best frontier joint (one priority-queue pop per pose).
 
 The JAX ``while_loop``s (``growth.py:482, 630``) run as batched Python
 loops (``common.while_loop``) that stop at the same convergence test or
-cap.  Ties keep JAX's order: ``argmax`` returns the first maximum and every
+cap, and under ``torch.export`` as its traced form (the waves' loop with
+``grow``'s nested in its body).  Ties keep JAX's order: ``argmax`` returns the first maximum and every
 ``argsort`` is stable.  Scatters write index sets without duplicates, or
 spill into a pad column that is never read, as the JAX version does.
 
@@ -183,12 +184,17 @@ def in_edges_table(edges: DirectedEdges, n_keypoints: int) -> np.ndarray:
 
 
 class EdgeTables(NamedTuple):
-    """The static edge tables as device tensors."""
+    """The static edge tables as device tensors, and their sizes as Python
+    ints: inside a traced loop the state's sizes are symbolic, and an outer
+    loop's symbol cannot be captured by an inner loop, so the loops read
+    K and Q from here."""
 
     src: torch.Tensor        # (Q,)
     tgt: torch.Tensor        # (Q,)
     out_edges: torch.Tensor  # (K, D), pad = Q
     in_edges: torch.Tensor   # (K, Din), pad = Q
+    n_keypoints: int         # K
+    n_edges: int             # Q, directed
 
 
 def edge_tables(edges: DirectedEdges, n_keypoints: int,
@@ -197,7 +203,8 @@ def edge_tables(edges: DirectedEdges, n_keypoints: int,
         return torch.as_tensor(a, dtype=torch.int64, device=device)
     return EdgeTables(t(edges.src_kp), t(edges.tgt_kp),
                       t(out_edges_table(edges, n_keypoints)),
-                      t(in_edges_table(edges, n_keypoints)))
+                      t(in_edges_table(edges, n_keypoints)), n_keypoints,
+                      len(edges.src_kp))
 
 
 def dirviews(cand: CafCandidates, edges: DirectedEdges):
@@ -270,7 +277,7 @@ def _connection_values_at(poses, placed, pose_valid, dv, et: EdgeTables,
     and new joint score, each (B, P, D).  Mirrors
     ``grow_connection_blend`` + reverse match (``cifcaf.cpp:~220..~330``).
     """
-    q_n = et.src.shape[0]
+    q_n = et.n_edges
     c_score, c_xs, c_ys, c_xt, c_yt, c_st, c_valid = dv
     q_safe = torch.clamp(q_sel, max=q_n - 1)   # clamp the pad sentinel
     bi = torch.arange(q_sel.shape[0], device=q_sel.device)[:, None, None]
@@ -318,9 +325,9 @@ def _connection_values(poses, placed, pose_valid, dv, et: EdgeTables,
     """Best association per (pose, directed edge), every edge at once:
     ``_connection_values_at`` with all Q edges selected for every pose.
     Returns value, target x/y/scale and new joint score, each (B, P, Q)."""
-    b, p = pose_valid.shape
-    q_n = et.src.shape[0]
-    q_all = torch.arange(q_n, device=poses.device).expand(b, p, q_n)
+    q_n = et.n_edges
+    q_all = torch.arange(q_n, device=poses.device).expand(
+        *pose_valid.shape, q_n)
     return _connection_values_at(poses, placed, pose_valid, dv, et, config,
                                  reverse_match, q_all,
                                  torch.ones_like(q_all, dtype=torch.bool))
@@ -365,11 +372,10 @@ def grow(poses: torch.Tensor, placed: torch.Tensor, pose_valid: torch.Tensor,
     from every connection computed at once (``_connection_values``), as
     the JAX pass does (``growth.py:460-497``), not from the fresh joints.
     """
-    b, p, k = placed.shape
-    q_n = et.src.shape[0]
+    b, p = placed.shape[:2]
+    k, q_n = et.n_keypoints, et.n_edges
     rows_k = torch.arange(k, device=poses.device)
     m = max(1, config.placements_per_round)
-    d_out = et.out_edges.shape[1]
 
     def make_body(th: float, rel: float, reverse: bool, pass_dv):
         """One relaxation round at threshold ``th``, relative gate ``rel``,
@@ -383,8 +389,9 @@ def grow(poses: torch.Tensor, placed: torch.Tensor, pose_valid: torch.Tensor,
             # of ~last)
             j_new = _first_true(last, m)                           # (B,P,m)
             new_ok = torch.gather(last, 2, j_new)
-            q_sel = et.out_edges[j_new].reshape(b, p, m * d_out)  # (B,P,mD)
-            q_ok = (q_sel < q_n) & new_ok.repeat_interleave(d_out, dim=2)
+            q_sel = et.out_edges[j_new]                         # (B,P,m,D)
+            q_ok = ((q_sel < q_n) & new_ok[..., None]).flatten(2)
+            q_sel = q_sel.flatten(2)                             # (B,P,mD)
             fresh = _connection_values_at(poses, placed, pose_valid,
                                           pass_dv, et, config, reverse,
                                           q_sel, q_ok)
@@ -416,9 +423,8 @@ def grow(poses: torch.Tensor, placed: torch.Tensor, pose_valid: torch.Tensor,
             new_data = torch.stack([torch.gather(t, 2, bq)
                                     for t in (tx, ty, new_v, ts)], dim=-1)
             poses = F.pad(poses, (0, 0, 0, 1)).scatter(
-                2, j_safe[..., None].expand(b, p, m, 4), new_data)[:, :, :k]
-            onehot = torch.zeros(b, p, k + 1, dtype=torch.bool,
-                                 device=poses.device).scatter(
+                2, j_safe[..., None].expand(-1, -1, -1, 4), new_data)[:, :, :k]
+            onehot = F.pad(torch.zeros_like(placed), (0, 1)).scatter(
                 2, j_safe, True)[..., :k]
             return (poses, placed | onehot, rounds_done + 1,
                     slot_ok.any(dim=2).any(dim=1), value, tx, ty, ts, new_v,
@@ -475,6 +481,10 @@ def grow_waves(seeds: Seeds, cand: CafCandidates, edges: DirectedEdges, *,
     suppression, ``n_dropped`` (B,) counts eligible seeds left unconsumed.
     """
     sx, sy, sv, ss, sf, s_valid = compact_seeds(seeds, config)
+    # the traced loop (``common.while_loop`` under ``torch.export``) takes
+    # no two closed-over tensors that share storage, as the seeds' x, y and
+    # s (views of one gathered tensor) do
+    sx, sy, ss = (t.clone() for t in (sx, sy, ss))
     b, s = sx.shape
     p = config.max_poses
     k = n_keypoints
@@ -483,7 +493,6 @@ def grow_waves(seeds: Seeds, cand: CafCandidates, edges: DirectedEdges, *,
     dv = dirviews(cand, edges)
     force_dv = None if force_cand is None else dirviews(force_cand, edges)
     rows_p = torch.arange(p, device=dev)
-    bi = torch.arange(b, device=dev)[:, None]
 
     def eligibility(poses, placed, alive, consumed):
         claimed = nms_mod.points_claimed(
@@ -508,22 +517,23 @@ def grow_waves(seeds: Seeds, cand: CafCandidates, edges: DirectedEdges, *,
         assign = rows_p[None, :] < n_new[:, None]
         f_sel = torch.clamp(torch.gather(sf, 1, sel), 0, k - 1)
 
-        seed_rows = torch.zeros(b, p, k, 4, device=dev)
-        seed_rows[bi, rows_p[None, :], f_sel] = torch.stack(
-            [torch.gather(a, 1, sel) for a in (sx, sy, sv, ss)], dim=-1)
-        placed_rows = torch.zeros(b, p, k, dtype=torch.bool, device=dev)
-        placed_rows[bi, rows_p[None, :], f_sel] = True
-
-        def put(t, new_rows):
-            # ``t.at[free_slots].set(...)``: free_slots is a permutation
-            out = t.clone()
-            out[bi, free_slots] = new_rows
-            return out
+        # every write below is a scatter into a tensor made here: a body of
+        # the traced loop may not write into its state or a closure
+        seed_rows = torch.zeros_like(poses).scatter(
+            2, f_sel[..., None, None].expand(-1, -1, 1, 4), torch.stack(
+                [torch.gather(a, 1, sel) for a in (sx, sy, sv, ss)],
+                dim=-1)[:, :, None])
+        placed_rows = torch.zeros_like(placed).scatter(2, f_sel[..., None],
+                                                       True)
 
         def refill(t, new_rows):
-            old = t[bi, free_slots]
-            m = assign.view(b, p, *([1] * (old.dim() - 2)))
-            return put(t, torch.where(m, new_rows, old))
+            # ``t.at[free_slots].set(where(assign, new_rows,
+            # t[free_slots]))``: free_slots is a permutation
+            trailing = (...,) + (None,) * (t.dim() - 2)
+            idx = free_slots[trailing].expand_as(t)
+            old = torch.gather(t, 1, idx)
+            return t.scatter(1, idx, torch.where(assign[trailing], new_rows,
+                                                 old))
 
         poses = refill(poses, seed_rows)
         placed = refill(placed, placed_rows)
@@ -532,8 +542,8 @@ def grow_waves(seeds: Seeds, cand: CafCandidates, edges: DirectedEdges, *,
         slot_valid = refill(slot_valid, torch.ones_like(assign))
         consumed = consumed | chosen
 
-        fresh = torch.zeros(b, p, k, dtype=torch.bool, device=dev)
-        fresh[bi, free_slots, f_sel] = assign
+        fresh = torch.zeros_like(placed).flatten(1).scatter(
+            1, free_slots * k + f_sel, assign).view_as(placed)
         poses, placed = grow(poses, placed, slot_valid, dv, et, config,
                              fresh_onehot=fresh, active=running,
                              force_dv=force_dv)

@@ -5,7 +5,7 @@ Port of ``openpifpaf_tpu/ops/nms.py``.  Reference parity:
 seed-time occupancy check (``cifcaf.cpp:~140``, ``occupancy.cpp:~15``).
 The JAX package's fixpoints (``jax.lax.while_loop``, ``nms.py:139, 237``)
 run here as batched Python loops to the same convergence test or cap
-(``common.while_loop``).  ``round`` is half-to-even in both frameworks, so
+(``common.while_loop``; traced under ``torch.export``).  ``round`` is half-to-even in both frameworks, so
 the occupancy quantization matches bit for bit.
 """
 
@@ -99,16 +99,20 @@ def seed_claim_suppression(poses: torch.Tensor, placed: torch.Tensor,
     claims = (inside & c_placed & earlier
               & pose_valid[:, :, None] & pose_valid[:, None, :])  # (b, q, p)
 
+    zeros = torch.zeros(b, dtype=torch.int64, device=poses.device)
+    # the round cap P as a tensor: under ``torch.export`` this loop runs
+    # inside the waves' loop, whose P is symbolic and cannot be captured
+    cap = zeros + p
+
     def cond(state):
         i, _, converged = state
-        return (i < p) & ~converged
+        return (i < cap) & ~converged
 
     def body(state, _):
         i, alive, _ = state
         new = pose_valid & ~torch.any(claims & alive[:, :, None], dim=1)
         return i + 1, new, torch.all(new == alive, dim=1)
 
-    zeros = torch.zeros(b, dtype=torch.int64, device=poses.device)
     _, alive, _ = while_loop(cond, body, (zeros, pose_valid, zeros.bool()),
                              active=active)
     return alive
@@ -188,7 +192,7 @@ def keypoint_nms(poses: torch.Tensor, pose_valid: torch.Tensor,
         claim = v > 0.0                                      # claimants
         suppressed = torch.any(near_beats & claim[:, None, :, :], dim=2)
         v_new = torch.where(suppressed, zero, v0)            # restart from v0
-        return i + 1, v_new, torch.all((v_new == v).reshape(b, -1), dim=1)
+        return i + 1, v_new, torch.all((v_new == v).flatten(1), dim=1)
 
     zeros = torch.zeros(b, dtype=torch.int64, device=poses.device)
     _, v, _ = while_loop(cond, body, (zeros, v0, zeros.bool()))

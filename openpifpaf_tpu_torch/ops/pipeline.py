@@ -5,7 +5,9 @@ Port of ``openpifpaf_tpu/ops/pipeline.py``.  Reference parity:
 CifHr accumulation -> seed selection -> CAF scoring -> greedy growth ->
 keypoint NMS.  The JAX decode is single-image and ``vmap``-batched under
 ``jit``; here the batch axis is written out and the fixpoint loops run in
-Python (one host sync per iteration, ``common.HOST_SYNCS``).
+Python (one host sync per iteration, ``common.HOST_SYNCS``), or, under
+``torch.export``, as traced loops: ``decode_cifcaf`` is one program
+(``export_program --include-decoder``).
 """
 
 from __future__ import annotations

@@ -338,3 +338,72 @@ def test_tile_matches_kernel_source():
     found = tuple(int(re.search(rf'constexpr int {n} = (\d+);', src)[1])
                   for n in ('TH', 'TW'))
     assert found == cif_hr.TILE
+
+
+# ------------------------------------------ K1 as a registered operator
+OP = torch.ops.openpifpaf_tpu_torch.cif_hr_accumulate.default
+
+
+def op_cells(b=2):
+    """(v, x, y, sigma), each (B, F, N) float32, as ``accumulate`` hands
+    them to the operator: ``synthetic_inputs`` of seeds 0.. (F = 5, 9 x 9
+    cells), masked and scaled by the default configuration."""
+    config = cif_hr.CifHrConfig()
+    conf, x_px, y_px, scale_px = (np.stack(a) for a in zip(
+        *(synthetic_inputs(seed) for seed in range(b))))
+    v = np.where(conf > config.v_threshold, conf * config.neighbor_factor, 0)
+    sigma = np.maximum(config.sigma_factor * scale_px, config.min_sigma_px)
+    return tuple(torch.from_numpy(a.reshape(b, 5, -1).astype(np.float32))
+                 for a in (v, x_px, y_px, sigma))
+
+
+@pytest.mark.parametrize('clip, y_offset_px', [(True, 0.0), (False, 0.0),
+                                                (True, 24.0)])
+def test_operator_opcheck(clip, y_offset_px):
+    torch.library.opcheck(OP, (*op_cells(), [33, 65], 2.0, 1.0, y_offset_px,
+                               clip, True))
+
+
+@pytest.mark.parametrize('profile_bf16', [True, False])
+def test_operator_cpu_kernel_equals_plain(profile_bf16):
+    """The operator's CPU implementation is ``accumulate_plain`` (bit for
+    bit, no launch counted), and ``accumulate`` reaches it.  The schema
+    carries ``profile_bf16`` for this implementation: the CUDA one (the
+    kernel, ``_launch``) computes f32 profiles whatever it says, so on the
+    card the decode has ``profile_bf16=False`` semantics; there
+    ``chip_smoke.py`` holds it to ``accumulate_plain`` with f32
+    profiles."""
+    cells = op_cells()
+    before = (cif_hr.KERNEL_LAUNCHES, cif_hr.CUDA_LAUNCHES)
+    for clip, y_offset_px in ((True, 0.0), (False, 24.0)):
+        got = OP(*cells, [33, 65], 2.0, 1.0, y_offset_px, clip, profile_bf16)
+        want = cif_hr.accumulate_plain(
+            *cells, out_hw=(33, 65), spacing=2.0, truncate=1.0,
+            y_offset_px=y_offset_px, clip=clip, profile_bf16=profile_bf16)
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+    conf, x_px, y_px, scale_px = (torch.from_numpy(a)
+                                  for a in synthetic_inputs(0))
+    config = cif_hr.CifHrConfig(profile_bf16=profile_bf16, max_active=0)
+    got = cif_hr.accumulate(conf, x_px, y_px, scale_px, out_hw=(65, 65),
+                            config=config)
+    want = OP(*(t[:1] for t in op_cells()), [65, 65], 2.0, 1.0, 0.0, True,
+              profile_bf16)[0]
+    assert torch.equal(got, want)
+    assert (cif_hr.KERNEL_LAUNCHES, cif_hr.CUDA_LAUNCHES) == before
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        cif_hr._launch(*cells, [33, 65], 2.0, 1.0, 0.0, True, profile_bf16)
+
+
+def test_operator_fake_shape():
+    """The fake implementation: (B, F, Hh, Wh) float32 without computing,
+    on fake tensors (as ``torch.export`` traces) and on the meta device."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    cells = op_cells(b=3)
+    with FakeTensorMode() as mode:
+        fake = [mode.from_tensor(t) for t in cells]
+        out = OP(*fake, [17, 40], 2.0, 1.0, 8.0, False, True)
+    assert tuple(out.shape) == (3, 5, 17, 40) and out.dtype == torch.float32
+    meta = OP(*(t.to('meta') for t in cells), [17, 40], 2.0, 1.0, 0.0, True,
+              False)
+    assert meta.device.type == 'meta' and tuple(meta.shape) == (3, 5, 17, 40)

@@ -1,5 +1,6 @@
 """The port's export: K2 as a registered operator, the ``.pt2`` program,
-the refusals and ``count_ops``, on the CPU against the JAX package.
+the CoreML refusal and ``count_ops``, on the CPU against the JAX package
+(the program with the decode: ``test_torch_port_export_decoder.py``).
 
 - ``openpifpaf_tpu_torch::pair_chain``: its CPU implementation equals
   ``pair_chain_plain`` bit for bit, ``torch.library.opcheck`` passes, a
@@ -12,7 +13,7 @@ the refusals and ``count_ops``, on the CPU against the JAX package.
   the port's forward against JAX, ``test_torch_port_models.py``).  The
   narrow model in process, full-width sn2k16 and a tracking model (batch
   raised to even) through the CLI;
-- ``--include-decoder`` and the CoreML CLI refuse;
+- the CoreML CLI refuses;
 - ``count_ops``: GMACs equal to the MACs of the forward's convolutions and
   linear layers counted from their shapes, JAX's number printed beside.
 """
@@ -225,15 +226,6 @@ def test_program_equals_eager_and_jax(tmp_path, dynamic):
         for g, w in zip(outs[batch], want):
             assert g.shape == w.shape
             assert np.abs(g.numpy() - np.asarray(w)).max() <= JAX_F32_TOL
-
-
-def test_include_decoder_refused():
-    _, model = narrow_pair()
-    with pytest.raises(NotImplementedError, match='fixpoint iteration'):
-        export_program.export_forward(model, HW, include_decoder=True)
-    with pytest.raises(NotImplementedError, match='fixpoint iteration'):
-        export_program.main(['--device', 'cpu', '--basenet',
-                             'shufflenetv2k16', '--include-decoder'])
 
 
 @pytest.mark.parametrize('device', [['--device', 'cpu'], []])
