@@ -5,13 +5,15 @@
 // jidctint.c with its range-limit table, fancy upsampling for h2v1, h1v2
 // and h2v2 components (jdsample.c) and replication for other integral
 // factors, and jdcolor.c's table-based YCbCr->RGB.  It reads baseline,
-// extended (8-bit Huffman) and progressive files, 1 or 3 components with
-// sampling factors 1..4, restart intervals, 8- and 16-bit quantisation
-// tables, and skips APPn and COM segments.  It refuses, by message:
-// arithmetic coding, 12-bit, lossless and hierarchical files, 4-component
-// files, DNL, a progressive file whose last scans leave coefficients
-// approximate (libjpeg smooths those blocks), and truncated or corrupt
-// data.
+// extended (8-bit Huffman) and progressive files, 1, 3 or 4 components
+// with sampling factors 1..4, restart intervals, 8- and 16-bit
+// quantisation tables, and skips APPn and COM segments.  Four components
+// are CMYK, or YCCK under an Adobe marker with transform 2 (jdcolor.c's
+// ycck_cmyk_convert); Pillow reads them as inverted "CMYK;I" and
+// convert('RGB') applies its cmyk2rgb.  It refuses, by message:
+// arithmetic coding, 12-bit, lossless and hierarchical files, DNL, a
+// progressive file whose last scans leave coefficients approximate
+// (libjpeg smooths those blocks), and truncated or corrupt data.
 //
 // The encoder reproduces libjpeg-turbo's default compression as Pillow
 // calls it (save(buf, 'JPEG', quality=q)): a JFIF header, jccolor.c's
@@ -186,6 +188,22 @@ struct Component {
   int dc_pred = 0;
   int dc_tbl = 0, ac_tbl = 0;
 };
+
+// jdcolor.c build_ycc_rgb_table, SCALEBITS 16
+struct YccTables {
+  int cr_r[256], cb_b[256];
+  int32_t cr_g[256], cb_g[256];
+  YccTables() {
+    for (int i = 0; i < 256; ++i) {
+      int32_t x = i - 128;
+      cr_r[i] = int((91881 * x + 32768) >> 16);
+      cb_b[i] = int((116130 * x + 32768) >> 16);
+      cr_g[i] = -46802 * x;
+      cb_g[i] = -22554 * x + 32768;
+    }
+  }
+};
+const YccTables kYcc;
 
 class Decoder {
  public:
@@ -365,8 +383,7 @@ class Decoder {
     if (precision != 8) fail("corrupt JPEG data: sample precision " + std::to_string(precision));
     if (height_ == 0) fail("JPEG DNL marker (height after the scan) is not supported");
     if (width_ == 0) fail("corrupt JPEG data: empty image");
-    if (nc == 4) fail("4-component (Adobe CMYK/YCCK) JPEG is not supported");
-    if (nc != 1 && nc != 3)
+    if (nc != 1 && nc != 3 && nc != 4)
       fail(std::to_string(nc) + "-component JPEG is not supported");
     if (len != 6 + 3 * nc) fail("corrupt JPEG data: bad frame header length");
     progressive_ = m == 0xC2;
@@ -786,6 +803,7 @@ class Decoder {
       return;
     }
     std::vector<u8> p0 = plane(comps_[0]), p1 = plane(comps_[1]), p2 = plane(comps_[2]);
+    if (comps_.size() == 4) return output_cmyk(out, p0, p1, p2, plane(comps_[3]));
     bool rgb;
     if (jfif_) {
       rgb = false;
@@ -802,26 +820,40 @@ class Decoder {
       }
       return;
     }
-    // jdcolor.c build_ycc_rgb_table, SCALEBITS 16
-    static int cr_r[256], cb_b[256];
-    static int32_t cr_g[256], cb_g[256];
-    static bool built = false;
-    if (!built) {
-      for (int i = 0; i < 256; ++i) {
-        int32_t x = i - 128;
-        cr_r[i] = int((91881 * x + 32768) >> 16);
-        cb_b[i] = int((116130 * x + 32768) >> 16);
-        cr_g[i] = -46802 * x;
-        cb_g[i] = -22554 * x + 32768;
-      }
-      built = true;
-    }
     auto clamp = [](int v) { return u8(v < 0 ? 0 : (v > 255 ? 255 : v)); };
     for (size_t i = 0; i < npix; ++i) {
       int y = p0[i], cb = p1[i], cr = p2[i];
-      out[3 * i] = clamp(y + cr_r[cr]);
-      out[3 * i + 1] = clamp(y + int((cb_g[cb] + cr_g[cr]) >> 16));
-      out[3 * i + 2] = clamp(y + cb_b[cb]);
+      out[3 * i] = clamp(y + kYcc.cr_r[cr]);
+      out[3 * i + 1] = clamp(y + int((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
+      out[3 * i + 2] = clamp(y + kYcc.cb_b[cb]);
+    }
+  }
+
+  // four components: CMYK, or YCCK (Adobe transform 2, or any transform
+  // but 0, as libjpeg assumes) through jdcolor.c's ycck_cmyk_convert; then
+  // Pillow's "CMYK;I" unpacking (each channel inverted) and Convert.c's
+  // cmyk2rgb
+  void output_cmyk(u8 *out, const std::vector<u8> &p0, const std::vector<u8> &p1,
+                   const std::vector<u8> &p2, const std::vector<u8> &p3) const {
+    const size_t npix = size_t(width_) * height_;
+    const bool ycck = adobe_ && adobe_transform_ != 0;
+    auto clamp = [](int v) { return v < 0 ? 0 : (v > 255 ? 255 : v); };
+    auto muldiv255 = [](int a, int b) {
+      const int t = a * b + 128;
+      return ((t >> 8) + t) >> 8;
+    };
+    for (size_t i = 0; i < npix; ++i) {
+      int c = p0[i], m = p1[i], y = p2[i];
+      if (ycck) {
+        const int luma = p0[i], cb = p1[i], cr = p2[i];
+        c = clamp(255 - (luma + kYcc.cr_r[cr]));
+        m = clamp(255 - (luma + int((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16)));
+        y = clamp(255 - (luma + kYcc.cb_b[cb]));
+      }
+      const int nk = p3[i];  // 255 - (255 - K)
+      out[3 * i] = u8(clamp(nk - muldiv255(255 - c, nk)));
+      out[3 * i + 1] = u8(clamp(nk - muldiv255(255 - m, nk)));
+      out[3 * i + 2] = u8(clamp(nk - muldiv255(255 - y, nk)));
     }
   }
 };

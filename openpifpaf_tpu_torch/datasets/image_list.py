@@ -2,8 +2,8 @@
 
 Port of ``ImageList`` of ``openpifpaf_tpu/datasets/loader.py`` (``:163-186``).
 Reference: the ``ImageList`` dataset the ``Predictor`` reads image files
-through.  Files are read by ``image_io.read_image`` (PNG, JPEG and BMP,
-without PIL); the image enters the preprocess as a (3, H, W)
+through.  Files are read by ``image_io.read_image`` (every format PIL's
+``open`` reads there, picked by content, without PIL); the image enters the preprocess as a (3, H, W)
 float32 tensor in uint8 levels, as the port's transforms take it.
 """
 

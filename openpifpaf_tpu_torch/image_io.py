@@ -1,8 +1,11 @@
-"""Image files without PIL: PNG, BMP and JPEG readers, a PNG writer.
+"""Image files without PIL: the format by content, PNG and BMP readers,
+a PNG writer.
 
 The machine with the card has no PIL, so the port reads its images
 itself.  ``read_image`` gives (H, W, 3) uint8 RGB, what the JAX package
-gets from PIL's ``Image.open(path).convert('RGB')``, for:
+gets from PIL's ``Image.open(path).convert('RGB')``.  As PIL does, it
+picks the reader from the file's leading bytes (``sniff``), never from
+its name, and raises a ``ValueError`` naming any other format:
 
 - PNG (``zlib`` and numpy): every colour type (greyscale, RGB, palette,
   greyscale with alpha, RGBA) at every bit depth the specification allows
@@ -12,10 +15,11 @@ gets from PIL's ``Image.open(path).convert('RGB')``, for:
   bits as PIL scales them (x255, x85, x17); at 16 bits colour samples
   keep their high byte, and greyscale clips at 255, as PIL's ``I;16`` ->
   RGB conversion does;
-- BMP: uncompressed 24- and 32-bit ``BI_RGB`` and ``BI_BITFIELDS`` (8-bit
-  masks) files and 8-bit palette files, bottom-up or top-down; other
-  variants (1, 4 and 16 bits, RLE, embedded JPEG or PNG) raise;
-- JPEG: ``jpeg.decode`` (``csrc/jpeg.cpp``).
+- BMP (``read_bmp``): 1-, 4- and 8-bit palettes, 16-, 24- and 32-bit
+  files, ``BI_BITFIELDS`` in the layouts Pillow reads, RLE8 and RLE4;
+  embedded JPEG or PNG raise;
+- JPEG: ``jpeg.decode`` (``csrc/jpeg.cpp``), CMYK and YCCK included;
+- WebP, GIF, TIFF and PNM: ``image_formats``.
 
 ``write_png`` writes 8-bit PNG files with a chosen row filter (the tests
 read them back, and ``chip_smoke.py`` writes its video frames with it).
@@ -23,13 +27,12 @@ read them back, and ``chip_smoke.py`` writes its video frames with it).
 
 from __future__ import annotations
 
-import os
 import struct
 import zlib
 
 import numpy as np
 
-from . import jpeg
+from . import image_formats, jpeg
 
 SIGNATURE = b'\x89PNG\r\n\x1a\n'
 # PNG colour type -> channels
@@ -41,9 +44,6 @@ DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
 ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 FILTERS = ('none', 'sub', 'up', 'average', 'paeth')
-PNG_SUFFIXES = ('.png',)
-BMP_SUFFIXES = ('.bmp',)
-SUFFIXES = PNG_SUFFIXES + BMP_SUFFIXES + jpeg.SUFFIXES
 
 
 def _chunks(data: bytes):
@@ -177,10 +177,7 @@ def read_png(data: bytes) -> np.ndarray:
     if colour == 3:
         if palette is None:
             raise ValueError('PNG palette image without a PLTE chunk')
-        # indices past the palette read black
-        full = np.zeros((256, 3), np.uint8)
-        full[:len(palette)] = palette[:256]
-        return full[samples[:, :, 0]]
+        return image_formats.lookup(samples[:, :, 0], palette)
     if depth == 16:
         if colour == 0:
             return np.minimum(samples, 255).astype(np.uint8)
@@ -197,70 +194,250 @@ def to_rgb(image: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(image[:, :, :3])
 
 
+BMP_COMPRESSIONS = {0: 'BI_RGB', 1: 'RLE8', 2: 'RLE4', 3: 'BI_BITFIELDS',
+                    4: 'an embedded JPEG', 5: 'an embedded PNG',
+                    6: 'BI_ALPHABITFIELDS'}
+# Pillow's BI_BITFIELDS layouts: bits -> (R, G, B[, A]) masks it reads
+BMP_MASKS = {
+    32: ((0xFF0000, 0xFF00, 0xFF, 0x0), (0xFF000000, 0xFF0000, 0xFF00, 0x0),
+         (0xFF000000, 0xFF00, 0xFF, 0x0), (0xFF000000, 0xFF0000, 0xFF00, 0xFF),
+         (0xFF, 0xFF00, 0xFF0000, 0xFF000000),
+         (0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+         (0xFF000000, 0xFF00, 0xFF, 0xFF0000), (0x0, 0x0, 0x0, 0x0)),
+    24: ((0xFF0000, 0xFF00, 0xFF),),
+    16: ((0xF800, 0x7E0, 0x1F), (0x7C00, 0x3E0, 0x1F))}
+
+
+def _bmp_rle(data: bytes, offset: int, width: int, height: int,
+             rle4: bool) -> np.ndarray:
+    """Pillow 12's ``BmpRleDecoder``, quirks kept: a delta reads two bytes
+    more than it uses, an odd absolute run of RLE4 drops its last pixel, and
+    absolute runs align on the file's (not the bitmap's) 16-bit words; rows
+    come out bottom-up as written."""
+    out = bytearray()
+    x, pos, total = 0, offset, width * height
+    while len(out) < total:
+        if pos + 2 > len(data):
+            break
+        count, byte = data[pos], data[pos + 1]
+        pos += 2
+        if count:  # encoded run
+            count_in_row = max(0, width - x) if x + count > width else count
+            if rle4:
+                pair = (byte >> 4, byte & 0x0F)
+                out += bytes(pair[i % 2] for i in range(count_in_row))
+            else:
+                out += bytes([byte]) * count_in_row
+            x += count_in_row
+        elif byte == 0:  # end of line
+            out += bytes(-len(out) % width)
+            x = 0
+        elif byte == 1:  # end of bitmap
+            break
+        elif byte == 2:  # delta
+            if pos + 2 > len(data):
+                break
+            pos += 2
+            if pos + 2 > len(data):
+                raise ValueError('BMP: truncated RLE delta')
+            right, up = data[pos], data[pos + 1]
+            pos += 2
+            out += bytes(right + up * width)
+            x = len(out) % width
+        else:  # absolute run
+            n = byte // 2 if rle4 else byte
+            run = data[pos:pos + n]
+            pos += len(run)
+            if rle4:
+                out += bytes(v for b in run for v in (b >> 4, b & 0x0F))
+            else:
+                out += run
+            if len(run) < n:
+                break
+            x += byte
+            pos += pos % 2
+    if len(out) < total:
+        raise ValueError('BMP: not enough RLE image data')
+    return np.frombuffer(bytes(out[:total]), np.uint8).reshape(height, width)
+
+
 def read_bmp(data: bytes) -> np.ndarray:
-    """BMP bytes -> (H, W, 3) uint8 RGB: uncompressed 24- and 32-bit
-    ``BI_RGB`` and ``BI_BITFIELDS`` (8-bit masks) and 8-bit palette
-    files, bottom-up or top-down."""
+    """BMP bytes -> (H, W, 3) uint8 RGB, what Pillow 12 reads: the 12-byte
+    OS/2 header and the Windows ones; 1-, 4- and 8-bit palettes (a grey
+    ramp is read as grey, as Pillow does), 16-bit 5-5-5 and, under
+    ``BI_BITFIELDS``, 5-6-5 or 5-5-5, 24- and 32-bit with Pillow's masks,
+    RLE8 and RLE4; bottom-up or top-down.  Other bit fields and embedded
+    JPEG or PNG raise."""
     if data[:2] != b'BM' or len(data) < 26:
         raise ValueError('not a BMP file')
-    offset, = struct.unpack('<I', data[10:14])
-    header, = struct.unpack('<I', data[14:18])
-    if header not in (40, 52, 56, 108, 124) or len(data) < 14 + header:
+    offset, header = struct.unpack('<II', data[10:18])
+    masks = ()
+    if header == 12:
+        width, height, _, bpp = struct.unpack('<HHHH', data[18:26])
+        compression, colours, padding, top_down = 0, 0, 3, False
+    elif header in (40, 52, 56, 64, 108, 124) and len(data) >= 14 + header:
+        width, height, _, bpp, compression = struct.unpack('<IIHHI',
+                                                           data[18:34])
+        colours, = struct.unpack('<I', data[46:50])
+        top_down = data[25] == 0xFF
+        if top_down:
+            height = 2 ** 32 - height
+        padding = 4
+        if compression == 3:
+            masks = struct.unpack('<IIII' if header >= 56 else '<III',
+                                  data[54:70 if header >= 56 else 66])
+            if header == 40 or header == 52:
+                masks = masks[:3] + (0,)
+    else:
         raise ValueError(f'BMP with a {header}-byte header is not supported')
-    width, height, _, bpp, compression = struct.unpack('<iiHHI', data[18:34])
-    colours, = struct.unpack('<I', data[46:50])
-    top_down = height < 0
-    height = abs(height)
-    if compression not in (0, 3) or bpp not in (8, 24, 32) or (
-            compression == 3 and bpp == 8):
-        raise ValueError(
-            f'BMP with {bpp} bits per pixel and compression {compression} '
-            'is not supported: only uncompressed 24- and 32-bit (BI_RGB, '
-            'BI_BITFIELDS) and 8-bit palette files are read')
-    stride = (width * bpp + 31) // 32 * 4
-    if width <= 0 or offset + stride * height > len(data):
-        raise ValueError('BMP pixel data is truncated')
-    rows = np.frombuffer(data, np.uint8, stride * height, offset).reshape(
-        height, stride)
-    if not top_down:
-        rows = rows[::-1]
-    if bpp == 8:
-        start = 14 + header
-        n = colours or 256
-        table = np.frombuffer(data[start:start + n * 4], np.uint8)
-        palette = np.zeros((256, 3), np.uint8)
-        table = table[:table.size // 4 * 4].reshape(-1, 4)[:256]
-        palette[:len(table)] = table[:, 2::-1]
-        return palette[rows[:, :width]]
+    if not 0 < width < 2 ** 31 or not 0 < height < 2 ** 31:
+        raise ValueError('BMP with a bad size')
+    colours = colours or (1 << bpp if bpp <= 16 else 0)
+    if offset == 14 + header and bpp <= 8:
+        offset += 4 * colours
+    if bpp not in (1, 4, 8, 16, 24, 32):
+        raise ValueError(f'BMP with {bpp} bits per pixel is not supported')
+    name = BMP_COMPRESSIONS.get(compression, f'compression {compression}')
+    if compression not in (0, 1, 2, 3):
+        raise ValueError(f'BMP with {name} is not supported')
+    if compression == 3 and (masks if bpp == 32 else masks[:3]) not in \
+            BMP_MASKS.get(bpp, ()):
+        raise ValueError('BMP with bit field masks '
+                         f'{", ".join(f"0x{m:x}" for m in masks)} at {bpp} '
+                         'bits is not supported (Pillow reads only its '
+                         'fixed layouts)')
+    table = None
+    if bpp <= 8:
+        if not 0 < colours <= 65536:
+            raise ValueError(f'BMP with a palette of {colours} colours')
+        raw = data[14 + header:14 + header + padding * colours]
+        grey = all(raw[i * padding:i * padding + 3] == bytes([v]) * 3
+                   for i, v in enumerate((0, 255) if colours == 2
+                                         else range(colours)))
+        if grey and compression == 0 and bpp < 8 and colours != 2:
+            raise ValueError(f'BMP at {bpp} bits with a grey ramp palette '
+                             'is not supported (Pillow fails on it too)')
+        if grey and compression and colours == 2:
+            raise ValueError('BMP with RLE and a black and white palette is '
+                             'not supported')
+        if not grey:
+            table = np.frombuffer(raw[:len(raw) // padding * padding],
+                                  np.uint8).reshape(-1, padding)[:, 2::-1]
+    if compression in (1, 2):
+        indices = _bmp_rle(data, offset, width, height, compression == 2)
+        if not top_down:
+            indices = indices[::-1]
+    else:
+        stride = (width * bpp + 31) // 32 * 4
+        if offset + stride * height > len(data):
+            raise ValueError('BMP pixel data is truncated')
+        rows = np.frombuffer(data, np.uint8, stride * height, offset).reshape(
+            height, stride)
+        if not top_down:
+            rows = rows[::-1]
+        if bpp < 8:
+            shifts = np.arange(8 - bpp, -1, -bpp, dtype=np.uint8)
+            indices = ((rows[:, :, None] >> shifts) & ((1 << bpp) - 1)
+                       ).reshape(height, -1)[:, :width]
+        elif bpp == 8:
+            indices = rows[:, :width]
+    if bpp <= 8:
+        if table is None:  # a grey ramp: the indices (black and white: 0, 1)
+            scale = 255 if colours == 2 else 1
+            return np.repeat((indices * scale).astype(np.uint8)[:, :, None],
+                             3, 2)
+        return image_formats.lookup(indices, table)
+    if bpp == 16:
+        pixel = (rows[:, 0:width * 2:2].astype(np.int64)
+                 | rows[:, 1:width * 2:2].astype(np.int64) << 8)
+        if masks[:3] == (0xF800, 0x7E0, 0x1F):
+            fields = ((11, 31), (5, 63), (0, 31))
+        else:
+            fields = ((10, 31), (5, 31), (0, 31))
+        return np.stack([((pixel >> s) & m) * 255 // m for s, m in fields],
+                        2).astype(np.uint8)
     pixels = rows[:, :width * bpp // 8].reshape(height, width, bpp // 8)
-    if compression == 0:
+    if compression == 0 or not any(masks):
         return np.ascontiguousarray(pixels[:, :, 2::-1])
-    masks = struct.unpack('<III', data[54:66])
     value = np.zeros((height, width), np.uint32)
     for i in range(bpp // 8):
         value |= pixels[:, :, i].astype(np.uint32) << (8 * i)
     out = np.empty((height, width, 3), np.uint8)
-    for c, mask in enumerate(masks):
+    for c, mask in enumerate(masks[:3]):
         shift = (mask & -mask).bit_length() - 1
-        if mask == 0 or mask >> shift != 0xFF:
-            raise ValueError(f'BMP bit field mask 0x{mask:08x} is not '
-                             'supported: only 8-bit channels are read')
         out[:, :, c] = (value >> shift) & 0xFF
     return out
 
 
+# other formats PIL reads, by their leading bytes, for the refusal
+OTHER_SIGNATURES = (
+    (0, b'\x00\x00\x01\x00', 'an ICO icon'),
+    (0, b'\x00\x00\x02\x00', 'a CUR cursor'),
+    (0, b'\x00\x00\x00\x0cjP  \r\n\x87\n', 'a JPEG 2000 file'),
+    (0, b'\xff\x4f\xff\x51', 'a JPEG 2000 codestream'),
+    (4, b'ftypavif', 'an AVIF file'), (4, b'ftypavis', 'an AVIF file'),
+    (4, b'ftypheic', 'a HEIF file'), (4, b'ftypmif1', 'a HEIF file'),
+    (0, b'8BPS', 'a Photoshop (PSD) file'), (0, b'DDS ', 'a DDS file'),
+    (0, b'qoif', 'a QOI file'), (0, b'icns', 'an ICNS icon'),
+    (0, b'\x76\x2f\x31\x01', 'an OpenEXR file'),
+    (0, b'%PDF', 'a PDF document'), (0, b'\x0a\x05', 'a PCX file'))
+
+
+def sniff(data: bytes) -> str:
+    """The image format of ``data`` by its leading bytes, as PIL's
+    ``Image.open`` picks its plugin: 'jpeg', 'png', 'bmp', 'gif', 'webp',
+    'tiff' or 'pnm'; raises a ``ValueError`` naming what the bytes look
+    like otherwise."""
+    if data[:3] == b'\xff\xd8\xff':
+        return 'jpeg'
+    if data.startswith(SIGNATURE):
+        return 'png'
+    if data[:2] == b'BM':
+        return 'bmp'
+    if data[:6] in (b'GIF87a', b'GIF89a'):
+        return 'gif'
+    if data[:4] == b'RIFF' and data[8:12] == b'WEBP':
+        return 'webp'
+    if data[:4] in (b'II*\x00', b'MM\x00*', b'II+\x00', b'MM\x00+'):
+        return 'tiff'
+    if data[:1] == b'P' and data[1:2] and data[1:2] in b'0123456fy':
+        return 'pnm'
+    for at, magic, name in OTHER_SIGNATURES:
+        if data[at:at + len(magic)] == magic:
+            raise ValueError(f'no reader for {name}')
+    if not data:
+        raise ValueError('no reader for an empty file')
+    raise ValueError('no reader for an unknown image format (leading bytes '
+                     f'{data[:12].hex(" ")})')
+
+
+READERS = {
+    'png': lambda data: to_rgb(read_png(data)), 'bmp': read_bmp,
+    'jpeg': jpeg.decode, 'webp': image_formats.webp_decode,
+    'gif': image_formats.read_gif, 'tiff': image_formats.read_tiff,
+    'pnm': image_formats.read_pnm}
+
+
+def decode(data: bytes) -> np.ndarray:
+    """Image file bytes -> (H, W, 3) uint8 RGB, the format by content;
+    corrupt or truncated data raises a ``ValueError`` too."""
+    kind = sniff(data)
+    try:
+        return READERS[kind](data)
+    except (struct.error, IndexError, zlib.error) as e:
+        raise ValueError(f'{kind.upper()}: corrupt or truncated data ({e})'
+                         ) from e
+
+
 def read_image(path: str) -> np.ndarray:
-    """An image file -> (H, W, 3) uint8 RGB."""
-    suffix = os.path.splitext(path)[1].lower()
-    if suffix not in SUFFIXES:
-        raise ValueError(f'{path}: no reader for {suffix!r} files')
+    """An image file -> (H, W, 3) uint8 RGB; the format is read from the
+    file's bytes, whatever its name."""
     with open(path, 'rb') as f:
         data = f.read()
-    if suffix in PNG_SUFFIXES:
-        return to_rgb(read_png(data))
-    if suffix in BMP_SUFFIXES:
-        return read_bmp(data)
-    return jpeg.decode(data)
+    try:
+        return decode(data)
+    except ValueError as e:
+        raise ValueError(f'{path}: {e}') from e
 
 
 def _filter_rows(rows: np.ndarray, bpp: int, kind: int) -> np.ndarray:

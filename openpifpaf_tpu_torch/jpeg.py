@@ -5,12 +5,13 @@ JPEG itself.  ``decode`` gives, pixel for pixel, what the JAX package gets
 from ``np.asarray(PIL.Image.open(path).convert('RGB'))``: the library
 reproduces libjpeg-turbo's default decompression (islow IDCT, fancy
 upsampling, table-based YCbCr->RGB; greyscale replicated).  It reads
-baseline, extended and progressive Huffman files with 1 or 3 components,
-any integral sampling factors up to 4, restart intervals and custom
-tables, and skips APPn and COM segments; it does not apply EXIF
-orientation (PIL's ``open`` does not either).  It raises a ``ValueError``
-naming the feature for arithmetic coding, 12-bit, lossless and
-hierarchical files, 4-component (CMYK/YCCK) files, DNL, a progressive file
+baseline, extended and progressive Huffman files with 1, 3 or 4
+components (CMYK, and YCCK by libjpeg's conversion, then Pillow's
+inverted ``CMYK;I`` and its CMYK->RGB), any integral sampling factors up
+to 4, restart intervals and custom tables, and skips APPn and COM
+segments; it does not apply EXIF orientation (PIL's ``open`` does not
+either).  It raises a ``ValueError`` naming the feature for arithmetic
+coding, 12-bit, lossless and hierarchical files, DNL, a progressive file
 whose scans leave coefficients approximate (libjpeg smooths those), and
 truncated or corrupt data.
 
@@ -36,7 +37,6 @@ import numpy as np
 from . import host_library
 
 SOURCE = host_library.CSRC / 'jpeg.cpp'
-SUFFIXES = ('.jpg', '.jpeg')
 
 DECODES = 0
 

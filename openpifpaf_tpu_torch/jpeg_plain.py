@@ -332,10 +332,7 @@ class _Decoder:
             raise ValueError(REFUSED[0xDC])
         if self.width == 0:
             raise ValueError('corrupt JPEG data: empty image')
-        if nc == 4:
-            raise ValueError(
-                '4-component (Adobe CMYK/YCCK) JPEG is not supported')
-        if nc not in (1, 3):
+        if nc not in (1, 3, 4):
             raise ValueError(f'{nc}-component JPEG is not supported')
         if len(body) != 6 + 3 * nc:
             raise ValueError('corrupt JPEG data: bad frame header length')
@@ -545,6 +542,9 @@ class _Decoder:
         planes = [self.plane(c) for c in self.comps]
         if len(planes) == 1:
             return np.repeat(planes[0][:, :, None], 3, 2).astype(np.uint8)
+        if len(planes) == 4:
+            return cmyk_to_rgb(*planes, ycck=self.adobe
+                               and self.adobe_transform != 0)
         if self.jfif:
             rgb = False
         elif self.adobe:
@@ -592,17 +592,35 @@ def upsample(s: np.ndarray, hr: int, vr: int, height: int,
     return np.repeat(np.repeat(s, vr, 0), hr, 1)[:height, :width]
 
 
-def ycc_to_rgb(y, cb, cr) -> np.ndarray:
-    """jdcolor.c's table-based YCbCr -> RGB, (H, W) each -> (H, W, 3)."""
+def _ycc_terms(y, cb, cr):
+    """jdcolor.c's table-based YCbCr -> RGB before the clamp."""
     x = np.arange(256, dtype=np.int64) - 128
     cr_r = (91881 * x + 32768) >> 16
     cb_b = (116130 * x + 32768) >> 16
     cr_g = -46802 * x
     cb_g = -22554 * x + 32768
-    r = y + cr_r[cr]
-    g = y + ((cb_g[cb] + cr_g[cr]) >> 16)
-    b = y + cb_b[cb]
-    return np.clip(np.stack([r, g, b], 2), 0, 255).astype(np.uint8)
+    return (y + cr_r[cr], y + ((cb_g[cb] + cr_g[cr]) >> 16), y + cb_b[cb])
+
+
+def ycc_to_rgb(y, cb, cr) -> np.ndarray:
+    """jdcolor.c's table-based YCbCr -> RGB, (H, W) each -> (H, W, 3)."""
+    return np.clip(np.stack(_ycc_terms(y, cb, cr), 2), 0,
+                   255).astype(np.uint8)
+
+
+def cmyk_to_rgb(c, m, y, k, ycck: bool) -> np.ndarray:
+    """Four components -> (H, W, 3): YCCK -> CMYK by jdcolor.c's
+    ycck_cmyk_convert when ``ycck``, then Pillow's "CMYK;I" unpacking
+    (each channel inverted) and Convert.c's cmyk2rgb."""
+    cmy = [c, m, y]
+    if ycck:
+        cmy = [np.clip(255 - t, 0, 255) for t in _ycc_terms(c, m, y)]
+    nk = k.astype(np.int64)
+    out = []
+    for v in cmy:
+        t = (255 - v.astype(np.int64)) * nk + 128
+        out.append(np.clip(nk - (((t >> 8) + t) >> 8), 0, 255))
+    return np.stack(out, 2).astype(np.uint8)
 
 
 def decode(data: bytes) -> np.ndarray:

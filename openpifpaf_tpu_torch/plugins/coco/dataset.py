@@ -5,7 +5,7 @@ same json reading (no pycocotools), the same filters (``category_ids``,
 ``annotation_filter``, ``min_kp_anns``) and sorted image ids, the same
 meta (``dataset_index``, ``image_id``, ``file_name``).  Images are read by
 ``image_io.read_image`` into a (3, H, W) float32 tensor in uint8 levels
-(PNG, JPEG and BMP files, without PIL).  ``rng`` is the
+(the format by content, as PIL's ``open``, without PIL).  ``rng`` is the
 generator the preprocess draws from, reseeded per loader worker
 (``datasets.module``).
 """

@@ -14,8 +14,8 @@ draws (``transforms.SyncPair``), with or without the augmentations
 and TCAF encoders.  The augmentations draw from the dataset's generator,
 seeded from the data module's ``seed`` (the JAX module's from unseeded
 ones).  Eval rescales and pads both frames and keeps the current frame's
-ground truth.  Frames are read by ``image_io.read_image``: PNG, JPEG and
-BMP, without PIL.
+ground truth.  Frames are read by ``image_io.read_image``: the format by
+content, without PIL.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ pose) pipeline.
 Port of ``openpifpaf_tpu/video.py`` (``:36-236``).  Reference parity:
 ``src/openpifpaf/video.py:~30`` — frames in, tracked poses out, with
 ``--start-frame`` / ``--skip-frames``.  Frames come from a directory or a
-glob of images, read by ``image_io`` (PNG, JPEG and BMP, without PIL),
+glob of ``.jpg``, ``.jpeg``, ``.png`` and ``.bmp`` files, as the JAX
+version's, read by ``image_io`` (by content, without PIL),
 or from a video file or a camera through OpenCV, where it is
 installed.  With a tracking model the previous frame's backbone features are
 cached: the backbone (K2 on the card) runs on the new frame only, the
@@ -40,9 +41,13 @@ from . import decoder as decoder_mod
 from . import headmeta, logger, models, show, transforms, visualizer
 from .decoder.pose_similarity import PoseSimilarity
 from .decoder.tracking_pose import TrackingPose
-from .image_io import SUFFIXES, read_image
+from .image_io import read_image
 
 LOG = logging.getLogger(__name__)
+
+# the frame files a folder or glob admits: the JAX version's fixed four
+# (``video.py:52-53``), whatever else ``read_image`` reads
+FRAME_SUFFIXES = ('.jpg', '.jpeg', '.png', '.bmp')
 
 
 class FrameReader:
@@ -66,7 +71,7 @@ class FrameReader:
         pattern = (os.path.join(self.source, '*')
                    if os.path.isdir(self.source) else self.source)
         paths = sorted(p for p in glob_mod.glob(pattern)
-                       if p.lower().endswith(SUFFIXES))
+                       if p.lower().endswith(FRAME_SUFFIXES))
         paths = paths[self.start_frame::self.skip_frames]
         if self.max_frames:
             paths = paths[:self.max_frames]

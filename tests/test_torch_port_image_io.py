@@ -13,8 +13,9 @@ path, exactly.
   byte, greyscale (PIL's ``I;16``) clips at 255 in ``convert('RGB')``.
 - BMP: PIL's 24-bit, 32-bit and 8-bit palette (``P`` and ``L``) files,
   and files written here: top-down rows, ``BI_BITFIELDS`` 32-bit with the
-  40-, 52-, 56-, 108- and 124-byte headers.  1-bit, RLE and 16-bit-mask files raise
-  a ``ValueError`` naming what is not read.
+  40-, 52-, 56-, 108- and 124-byte headers, PIL's 1-bit files.  Embedded
+  JPEG or PNG and bit fields Pillow does not read raise a ``ValueError``
+  naming what is not read.
 """
 
 import io
@@ -210,13 +211,15 @@ def test_written_bmp_top_down(bpp, tmp_path):
 
 
 def test_bmp_refusals(tmp_path):
+    """1-bit files, once refused, read as PIL reads them (the other 1-, 4-
+    and 16-bit and RLE files: ``test_torch_port_image_formats.py``); an
+    embedded JPEG or PNG and bit fields Pillow does not read still raise."""
     buf = io.BytesIO()
     PIL.Image.fromarray(IMAGE).convert('1').save(buf, 'BMP')
-    with pytest.raises(ValueError, match='1 bits per pixel'):
-        image_io.read_bmp(buf.getvalue())
-    rle = bmp_file(IMAGE[:, :, :1].copy(), 8, 1)
-    with pytest.raises(ValueError, match='compression 1'):
-        image_io.read_bmp(rle)
+    assert_reads_as_pil(buf.getvalue(), tmp_path, '.bmp')
+    for compression, name in ((4, 'embedded JPEG'), (5, 'embedded PNG')):
+        with pytest.raises(ValueError, match=name):
+            image_io.read_bmp(bmp_file(BGRA, 32, compression))
     masks = (0x7C00, 0x3E0, 0x1F, 0)
-    with pytest.raises(ValueError, match='mask 0x00007c00'):
+    with pytest.raises(ValueError, match='masks 0x7c00'):
         image_io.read_bmp(bmp_file(BGRA, 32, 3, 108, masks))

@@ -329,12 +329,19 @@ def test_refusals_name_the_feature(case):
 
 
 def test_cmyk_is_refused():
+    """Once refused, a CMYK file (and the same bytes marked YCCK by
+    Adobe's transform 2) now decodes in both decoders as PIL reads it
+    (more cases: ``test_torch_port_image_formats.py``)."""
     buf = io.BytesIO()
     PIL.Image.fromarray(seeded_image(17, 9, 0)).convert('CMYK').save(
         buf, 'JPEG')
-    for decode in (jpeg.decode, jpeg_plain.decode):
-        with pytest.raises(ValueError, match='4-component'):
-            decode(buf.getvalue())
+    data = buf.getvalue()
+    at = data.index(b'Adobe')
+    ycck = data[:at + 11] + b'\x02' + data[at + 12:]
+    for variant in (data, ycck):
+        for decode in (jpeg.decode, jpeg_plain.decode):
+            np.testing.assert_array_equal(decode(variant),
+                                          pil_decode(variant))
 
 
 def test_progressive_sample_of_the_chip_check():

@@ -197,8 +197,10 @@ def test_other_formats(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, 'PIL', None)
     np.testing.assert_array_equal(image_io.read_image(path), image)
     np.testing.assert_array_equal(image_io.read_image(deep), want_deep)
+    unknown = tmp_path / 'x.tif'
+    unknown.write_bytes(b'not an image file')
     with pytest.raises(ValueError, match='no reader'):
-        image_io.read_image(str(tmp_path / 'x.tif'))
+        image_io.read_image(str(unknown))
 
 
 def test_refused_flags_and_no_cuda(stream, monkeypatch, tmp_path):
