@@ -145,6 +145,26 @@ Phases, in order; any failure raises and exits non-zero:
    of 641 px on the card (poses and boxes in every json) and with 2 PNGs
    of 129 px on the card and on the CPU, f32, held by
    ``hold_predict_jsons``;
+13b. drift (after the deferred CLIs of phases 8-13, which write the train
+   phase's checkpoint): the port's drift harness
+   (``openpifpaf_tpu_torch.drift``) on the card, the production decode
+   against the sequential oracle (``ops.sequential_oracle``) on the same
+   front end (K1): (a) ``tests/test_drift.py``'s 24 clean scenes (seeds
+   1000+i and 2000+i over its densities, 5-60 people) and its 12 noisy
+   ones (4000+i, ``FieldNoise()``) in batches of 12, each set held to that
+   test's gate (F1 >= 0.98, mean OKS >= 0.99, score delta <= 0.01, joint
+   agreement >= 0.98; noisy 0.97 / 0.98 / 0.02 / 0.97), ms per scene of
+   both paths and of the oracle, host syncs per scene (the oracle's
+   read-backs among them), K1 calls; (b) two noisy scenes' oracle poses
+   held to the port's CPU oracle with f32 CifHr profiles (the same count,
+   matched within 1e-3 / 1e-4), and K1 at the harness's shapes (F = 17
+   and, from (c), F = 133) held to ``accumulate_plain`` with max|d| 0 and
+   timed; (c) two clean WholeBody scenes (``wholebody_spec``, 256 poses,
+   4096 seeds, force-complete off) held to
+   ``tests/test_drift_wholebody.py``'s clean gate; (d) ``trained_drift``
+   in this process on the train phase's sn2k16 toykp checkpoint, 4 eval
+   images, f32: its JSON (F1 and APs finite), K1 and K2 counted, K2 held
+   to its plain version and timed at the forward's chain inputs;
 14. backbones: every registered backbone (21) with seeded weights and
    cocokp's CIF and CAF heads: (a) the card's served forward against the
    port's CPU forward in f32 (TF32 off) at 129 px, batch 1, within 1e-4
@@ -240,7 +260,11 @@ Phases, in order; any failure raises and exits non-zero:
    (every head equal, ``torch.equal``) with K2 launched 3
    times per batch (counts set to 0 before and read after), the forward's
    ms per image of the program and of eager (CUDA events); (b) the same
-   with ``--dynamic-batch``, run and held at batch 1 and 8; (c)
+   with ``--dynamic-batch``, run and held at batch 1 and 8, and
+   tshufflenetv2k16 with toykpst's heads (the tracking phase's model, a
+   checkpoint; its CLI starts with the decoded ones) exported with
+   ``--dynamic-batch``, held the same way at 1, 2 and 3 frame pairs (a
+   stream calls it with one); (c)
    ``export_onnx --verify`` of sn2k16 and swin_t in f32 at 641 px (TF32
    off, the interpreter on the card): deviation, bytes, nodes, seconds;
    (d) ``count_ops`` at 641 px, and the flop counter's totals over the
@@ -307,11 +331,14 @@ Phases, in order; any failure raises and exits non-zero:
    ``coco_launches`` (per data module), ``posetrack_launches``,
    ``show_launches`` (K1 per ``__call__``: plain, indices empty and set),
    ``image_formats_launches`` (K1 and K2 in the image formats' predict),
+   ``drift_launches`` (K1 per drift run, K2 in the trained drift),
    ``parallel_launches`` (K1 and K2 per eval run and rank, K1 per band)
    and ``export_launches`` (K1 in the decoded programs' runs, K2 in every
    exported program's) from those phases' runs, ``wholebody``,
    ``tracking``, ``detect``, ``detect_cifar10``, ``backbones``, ``coco``,
-   ``posetrack``, ``show``, ``parallel`` (K1 at a band of two) and
+   ``posetrack``, ``show``, ``parallel`` (K1 at a band of two), ``drift``
+   (K1 at the harness's F = 17 and ``drift_wholebody`` at F = 133, K2 at
+   the trained drift's chains) and
    ``export`` (K1 at the decoded program's inputs) its hold and times at
    those shapes), the script's seconds, the card's name and power limit, then
    the last line ``{"ok": true, "device": {...}}``.
@@ -2954,6 +2981,225 @@ def wholebody_phase(port, card: str, tmp: str) -> dict:
     print(f'wholebody phase: {time.perf_counter() - start:.1f} s ({card})',
           flush=True)
     return dict(counts=counts, k1=k1, k2=k2)
+
+
+# ------------------------------------------------------------------ drift
+# the drift phase: the port's drift harness (``openpifpaf_tpu_torch.drift``)
+# on the card, the production decode against the sequential oracle on
+# ``tests/test_drift.py``'s gate scenes, at its thresholds
+DRIFT_DENSITIES = (5, 9, 14, 19, 24, 29, 34, 39, 44, 49, 54, 60)
+DRIFT_CLEAN = ([(1000 + i, n) for i, n in enumerate(DRIFT_DENSITIES)]
+               + [(2000 + i, n) for i, n in enumerate(DRIFT_DENSITIES)])
+DRIFT_NOISY = [(4000 + i, n) for i, n in enumerate(DRIFT_DENSITIES)]
+# (key, least or most, clean limit, noisy limit)
+DRIFT_GATES = (('detection_f1', 'min', 0.98, 0.97),
+               ('mean_oks', 'min', 0.99, 0.98),
+               ('mean_score_delta', 'max', 0.01, 0.02),
+               ('mean_joint_agreement', 'min', 0.98, 0.97))
+DRIFT_HELD = (DRIFT_NOISY[3], DRIFT_NOISY[11])
+DRIFT_WHOLEBODY = ((5000, 3), (5001, 6))    # tests/test_drift_wholebody.py
+DRIFT_BATCH = 12
+TRAINED_DRIFT_IMAGES = 4
+
+
+def gate_drift(agg: dict, noisy: bool, label: str) -> None:
+    """``tests/test_drift.py``'s gate on an aggregate."""
+    failed = []
+    for key, kind, clean_limit, noisy_limit in DRIFT_GATES:
+        limit = noisy_limit if noisy else clean_limit
+        if not (agg[key] >= limit if kind == 'min' else agg[key] <= limit):
+            failed.append(f'{key} {agg[key]} (limit {limit})')
+    print(f'{label}: {json.dumps(agg)}; the gate of tests/test_drift.py: '
+          f'{"failed: " + ", ".join(failed) if failed else "passed"}',
+          flush=True)
+    if failed:
+        raise AssertionError(f'{label}: drift beyond the gate')
+
+
+def drift_scenes(port, harness, jobs, noise=None) -> dict:
+    """``jobs`` through ``harness`` in batches of ``DRIFT_BATCH``; the
+    results, the K1 calls' inputs, and per scene the seconds of the decode
+    (both paths), of the oracle alone and the host syncs."""
+    from openpifpaf_tpu_torch import drift
+
+    seconds, oracle = harness.seconds['decode'], harness.seconds['oracle']
+    syncs, oracle_syncs = port.common.HOST_SYNCS, harness.oracle_syncs
+    port.cif_hr.KERNEL_LAUNCHES = 0
+    out = {}
+    captured = spy_cif_hr(port, lambda: out.update(results=drift.run_scenes(
+        harness, jobs, noise=noise, batch_size=DRIFT_BATCH)))
+    n = len(jobs)
+    return dict(results=out['results'], captured=captured,
+                k1=port.cif_hr.KERNEL_LAUNCHES,
+                ms=1e3 * (harness.seconds['decode'] - seconds) / n,
+                oracle_ms=1e3 * (harness.seconds['oracle'] - oracle) / n,
+                syncs=(port.common.HOST_SYNCS - syncs) / n,
+                oracle_syncs=(harness.oracle_syncs - oracle_syncs) / n)
+
+
+def print_drift_run(run: dict, label: str, card: str) -> None:
+    print(f'{label}: {len(run["results"])} scenes in batches of '
+          f'{DRIFT_BATCH}, {run["ms"]:.3f} ms per scene (the oracle '
+          f'{run["oracle_ms"]:.3f}), host syncs per scene '
+          f'{run["syncs"]:.2f} (the oracle\'s {run["oracle_syncs"]:.2f}), '
+          f'K1 calls {run["k1"]} ({card})', flush=True)
+
+
+def hold_oracle_to_cpu(port, card_harness, jobs, noise) -> dict:
+    """(b) The card's oracle poses on ``jobs`` against the port's CPU
+    oracle on the same scenes, the CPU's CifHr profiles f32 as the card's:
+    per scene the same number of poses, matched one to one within 1e-3 in
+    xyv and 1e-4 in score (``hold_card_to_cpu``'s tolerances)."""
+    from openpifpaf_tpu_torch import drift
+
+    config = card_harness.config
+    cpu = drift.Harness(dataclasses.replace(
+        config, cifhr=dataclasses.replace(config.cifhr, profile_bf16=False)),
+        spec=card_harness.spec, device='cpu')
+    worst = {'xyv': 0.0, 'score': 0.0}
+    for seed, n_poses in jobs:
+        # the scene and its noise drawn as ``drift.run_scenes`` draws them
+        rng = np.random.default_rng(seed)
+        scene = drift.random_scene(rng, n_poses, spec=card_harness.spec)
+        fields = card_harness.scene_fields(scene, noise, rng)
+        (_, on_card), = card_harness.decode_fields([fields])
+        (_, on_cpu), = cpu.decode_fields([fields])
+        counts = (len(on_card), len(on_cpu))
+        free = list(range(len(on_cpu)))
+        dxyv = dscore = 0.0
+        for xyv, score in on_card if counts[0] == counts[1] else ():
+            d = [float(np.abs(xyv - on_cpu[j][0]).max()) for j in free]
+            best = int(np.argmin(d))
+            dxyv = max(dxyv, d[best])
+            dscore = max(dscore, abs(score - on_cpu[free.pop(best)][1]))
+        print(f'(b) scene {seed} ({n_poses} people, noisy): the card\'s '
+              f'oracle {counts[0]} poses, the CPU\'s (f32 profiles) '
+              f'{counts[1]}; matched one to one, max|dxyv| {dxyv:.3e} '
+              f'(limit 1e-3), max|dscore| {dscore:.3e} (limit 1e-4)',
+              flush=True)
+        if counts[0] != counts[1] or counts[0] == 0 or not (
+                dxyv <= 1e-3 and dscore <= 1e-4):
+            raise AssertionError(f'(b) scene {seed}: the card\'s oracle '
+                                 'differs from the CPU\'s')
+        worst = {'xyv': max(worst['xyv'], dxyv),
+                 'score': max(worst['score'], dscore)}
+    return worst
+
+
+def trained_drift_step(port, card: str, checkpoint: str) -> dict:
+    """(d) ``trained_drift.main`` in this process on the card, on the
+    train phase's checkpoint (sn2k16, toykp) over ``TRAINED_DRIFT_IMAGES``
+    eval images: K1 and K2 counted from 0, its JSON; then K2 held to its
+    plain version and timed at the forward's chain inputs."""
+    from openpifpaf_tpu_torch import trained_drift
+
+    pc = port.pair_chain
+    chains = []
+    launch_chain = pc.apply_chain
+
+    def spy_chain(a, b, chain):
+        chains.append((a.clone(), b.clone(), chain))
+        return launch_chain(a, b, chain)
+
+    port.cif_hr.KERNEL_LAUNCHES = pc.KERNEL_LAUNCHES = 0
+    syncs = port.common.HOST_SYNCS
+    out = io.StringIO()
+    start = time.perf_counter()
+    pc.apply_chain = spy_chain
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = trained_drift.main(['--checkpoint', checkpoint,
+                                     '--n-images', str(TRAINED_DRIFT_IMAGES)])
+    finally:
+        pc.apply_chain = launch_chain
+    seconds = time.perf_counter() - start
+    k1, k2 = port.cif_hr.KERNEL_LAUNCHES, pc.KERNEL_LAUNCHES
+    result = json.loads(out.getvalue().splitlines()[-1])
+    print(f'(d) trained_drift on {os.path.basename(checkpoint)} (toykp, '
+          f'{TRAINED_DRIFT_IMAGES} images): exit {rc} in {seconds:.1f} s, K1 '
+          f'{k1} and K2 {k2} calls, {port.common.HOST_SYNCS - syncs} host '
+          f'syncs ({card})', flush=True)
+    print(json.dumps(result), flush=True)
+    finite = all(isinstance(result[k], (int, float))
+                 and np.isfinite(result[k])
+                 for k in ('detection_f1', 'AP_parallel', 'AP_oracle'))
+    if rc != 0 or not finite or result['n_images'] != TRAINED_DRIFT_IMAGES \
+            or k1 < 1 or k2 < len(SN2K16_CHAINS):
+        raise AssertionError('(d) trained drift: not finite, or not '
+                             'through K1 and K2')
+    model = port.models.factory(checkpoint=checkpoint, bf16=False,
+                                device='cuda')
+    basenet = model.module.basenet
+    k2_times = sum_chains([measure_pair_chain(
+        pc, f'trained drift stage {stage}', a, b, chain,
+        [getattr(basenet, f'stage{stage}_{i}') for i in range(1, n + 1)])
+        for (a, b, chain), (stage, n, _, _) in zip(chains[:3],
+                                                   SN2K16_CHAINS)])
+    k2_times['shape'] = ', '.join(f'{tuple(a.shape)} {str(a.dtype)[6:]}'
+                                  for a, _, _ in chains[:3])
+    return dict(result=result, k1=k1, k2=k2, k2_times=k2_times,
+                seconds=seconds)
+
+
+def drift_phase(port, card: str, checkpoint: str) -> dict:
+    """The drift harness on the card: (a) ``tests/test_drift.py``'s 24
+    clean and 12 noisy scenes, production decode against the sequential
+    oracle, held to its gate; (b) two noisy scenes' oracle poses held to
+    the CPU's oracle with f32 profiles, and K1 at the harness's shapes
+    (F = 17 and, from (c), 133) held to ``accumulate_plain`` (max|d| 0)
+    and timed; (c) two clean WholeBody scenes, held to
+    ``tests/test_drift_wholebody.py``'s clean gate; (d) ``trained_drift``
+    on the train phase's checkpoint (``trained_drift_step``)."""
+    from openpifpaf_tpu_torch import drift
+
+    start = time.perf_counter()
+    harness = drift.Harness()
+    clean = drift_scenes(port, harness, DRIFT_CLEAN)
+    print_drift_run(clean, '(a) clean scenes', card)
+    gate_drift(drift.aggregate(clean['results']), False, '(a) clean scenes')
+    noisy = drift_scenes(port, harness, DRIFT_NOISY, drift.FieldNoise())
+    print_drift_run(noisy, '(a) noisy scenes', card)
+    gate_drift(drift.aggregate(noisy['results']), True, '(a) noisy scenes')
+
+    held = hold_oracle_to_cpu(port, harness, DRIFT_HELD, drift.FieldNoise())
+    args, kwargs = clean['captured'][0]
+    k1 = measure_cif_hr(port.cif_hr, 'drift harness F=17', args, kwargs)
+    k1['shape'] = (f'(B, F, N) {tuple(args[0].shape)} -> '
+                   f'{tuple(kwargs["out_hw"])}')
+
+    wb_harness = drift.Harness(drift.harness_config(max_poses=256,
+                                                    max_seeds=4096),
+                               spec=drift.wholebody_spec())
+    wholebody = drift_scenes(port, wb_harness, DRIFT_WHOLEBODY)
+    print_drift_run(wholebody, '(c) WholeBody scenes', card)
+    agg = drift.aggregate(wholebody['results'])
+    print(f'(c) WholeBody scenes: {json.dumps(agg)} (limits: F1 1.0, mean '
+          f'OKS >= 0.999, mean |score delta| <= 1e-4)', flush=True)
+    if not (agg['n_oracle'] > 0 and agg['detection_f1'] == 1.0
+            and agg['mean_oks'] >= 0.999
+            and agg['mean_score_delta'] <= 1e-4):
+        raise AssertionError('(c) WholeBody scenes: drift on clean scenes')
+    args, kwargs = wholebody['captured'][0]
+    k1_wb = measure_cif_hr(port.cif_hr, 'drift harness WholeBody F=133',
+                           args, kwargs)
+    k1_wb['shape'] = (f'(B, F, N) {tuple(args[0].shape)} -> '
+                      f'{tuple(kwargs["out_hw"])}')
+    if k1['max_abs_err'] != 0.0 or k1_wb['max_abs_err'] != 0.0:
+        raise AssertionError('K1 at the harness\'s shapes: max|d| not 0')
+
+    trained = trained_drift_step(port, card, checkpoint)
+    seconds = time.perf_counter() - start
+    print(f'drift phase: {seconds:.1f} s; K1 calls {clean["k1"]} (clean), '
+          f'{noisy["k1"]} (noisy), {wholebody["k1"]} (WholeBody), '
+          f'{trained["k1"]} (trained drift); K2 calls {trained["k2"]} '
+          f'(trained drift); the oracle\'s host syncs per scene '
+          f'{clean["oracle_syncs"]:.2f} ({card})', flush=True)
+    return dict(seconds=seconds, k1=k1, k1_wholebody=k1_wb,
+                k2=trained['k2_times'], held=held,
+                counts={'k1': {'clean': clean['k1'], 'noisy': noisy['k1'],
+                               'wholebody': wholebody['k1'],
+                               'trained_drift': trained['k1']},
+                        'k2': {'trained_drift': trained['k2']}})
 
 
 # --------------------------------------------------------------- tracking
@@ -5960,7 +6206,9 @@ def start_decoded_exports(port, tmp: str) -> dict:
     (bf16, 641 px) at batch 8 and with ``--dynamic-batch`` started in the
     background: tracing the decode takes a minute on the card machine's
     host, so the script starts them before the backbones phase and
-    ``export_clis`` collects them.  Returns name -> (start, process)."""
+    ``export_clis`` collects them.  Beside them, the tracking phase's
+    tshufflenetv2k16 as the checkpoint ``tmp/tracking.npz`` and its
+    program with ``--dynamic-batch``.  Returns name -> (start, process)."""
     from openpifpaf_tpu_torch.plugins.coco.cocokp import CocoKp
 
     metas = CocoKp().head_metas
@@ -5971,13 +6219,19 @@ def start_decoded_exports(port, tmp: str) -> dict:
         f'{tmp}/shifted.npz', variables=port.models.to_jax_variables(
             shifted.module.state_dict()), head_metas=metas,
         basenet_name='shufflenetv2k16', base_stride=16)
+    del shifted
+    save_tracking_model(port, tracking_model(port), f'{tmp}/tracking.npz')
     decoded = ['export_program', f'--checkpoint={tmp}/shifted.npz',
                '--include-decoder', *EXPORT_SIZE]
     return start_exports({
         'program decoder': [*decoded, '--batch-size', str(EXPORT_BATCH),
                             '--outfile', f'{tmp}/decoder.pt2'],
         'program decoder dynamic': [*decoded, '--dynamic-batch', '--outfile',
-                                    f'{tmp}/decoder_dynamic.pt2']})
+                                    f'{tmp}/decoder_dynamic.pt2'],
+        'program tracking dynamic': [
+            'export_program', f'--checkpoint={tmp}/tracking.npz',
+            '--dynamic-batch', '--outfile', f'{tmp}/tracking_dynamic.pt2',
+            *EXPORT_SIZE]})
 
 
 def start_exports(runs) -> dict:
@@ -5992,8 +6246,8 @@ def start_exports(runs) -> dict:
 
 
 def export_clis(tmp: str, decoded: dict) -> dict:
-    """The export CLIs on the card, all started at once, and the decoded
-    ones (``start_decoded_exports``) collected: the program of seeded
+    """The export CLIs on the card, all started at once, and the ones
+    ``start_decoded_exports`` started collected: the program of seeded
     sn2k16 with cocokp's heads (bf16) at batch 8 and with
     ``--dynamic-batch``, ONNX with ``--verify`` for sn2k16 and swin_t (f32,
     TF32 off), count_ops, and the CoreML CLI.  Returns name -> (exit code,
@@ -6287,6 +6541,17 @@ def export_phase(port, card: str, tmp: str, decoded_clis: dict) -> dict:
         hold_program(pc, dynamic, model, batches[0][:n],
                      f'--dynamic-batch program at batch {n}')
         launches += len(SN2K16_CHAINS)
+    # a stream calls a tracking program with one frame pair at a time
+    tracking = port.models.factory(checkpoint=f'{tmp}/tracking.npz',
+                                   device='cuda')
+    tracked = export_program.load_exported(
+        f'{tmp}/tracking_dynamic.pt2').module()
+    for pairs in (1, 2, 3):
+        hold_program(pc, tracked, tracking, batches[1][:2 * pairs],
+                     f'tshufflenetv2k16 --dynamic-batch program at {pairs} '
+                     f'frame pair(s)')
+        launches += len(SN2K16_CHAINS)
+    del tracking
 
     for name in ('shufflenetv2k16', 'swin_t'):
         rc, out, seconds = clis[f'onnx {name}']
@@ -7450,6 +7715,8 @@ def main() -> int:
         detected = detect_phase(port, card, tmp)
         phase('deferred CLIs')
         run_deferred(card)
+        phase('drift')
+        drifted = drift_phase(port, card, os.path.join(tmp, 'model.npz'))
     with tempfile.TemporaryDirectory() as export_tmp:
         phase('backbones')
         decoded_clis = start_decoded_exports(port, export_tmp)
@@ -7486,13 +7753,15 @@ def main() -> int:
                                                 coco['crowd']['k1'],
                                                 posetrack['k1'], shown['k1'],
                                                 exported['k1'])]
-                  + [paralleled['k1_max_abs_err']]
+                  + [paralleled['k1_max_abs_err'],
+                     drifted['k1']['max_abs_err'],
+                     drifted['k1_wholebody']['max_abs_err']]
                   + [r['max_abs_err'] for kind, r in evaluated['checks']
                      if kind == 'cif_hr'])
     k2_err = max([k2_err, wholebody['k2']['max_abs_err'],
                   tracked['k2']['max_abs_err'], coco['k2']['max_abs_err'],
                   posetrack['k2']['max_abs_err'],
-                  exported['k2']['max_abs_err']]
+                  exported['k2']['max_abs_err'], drifted['k2']['max_abs_err']]
                  + [r['max_abs_err'] for kind, r in evaluated['checks']
                     if kind == 'pair_chain'])
     eval_counts = evaluated['runs']['multi-scale force-complete']['counts']
@@ -7537,6 +7806,9 @@ def main() -> int:
         'parallel_launches': dict(paralleled['counts']['k1'],
                                   bands=paralleled['bands']),
         'parallel': at_new_shape(paralleled['k1']),
+        'drift_launches': drifted['counts']['k1'],
+        'drift': at_new_shape(drifted['k1']),
+        'drift_wholebody': at_new_shape(drifted['k1_wholebody']),
         'max_abs_err': max_err, 'max_abs_diff': max_err,
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
@@ -7565,13 +7837,16 @@ def main() -> int:
         'export_launches': exported['launches'],
         'parallel_launches': paralleled['counts']['k2'],
         'export': at_new_shape(exported['k2']),
+        'drift_launches': drifted['counts']['k2'],
+        'drift': at_new_shape(drifted['k2']),
         'max_abs_err': k2_err, 'max_abs_diff': k2_err,
         'ms': k2_main['ms'], 'plain_ms': k2_main['plain_ms'],
         'bound_ms': k2_main['bound_ms'], 'bound_by': k2_main['bound_by'],
         'library_ms': None}]}), flush=True)
     print(f'chip_smoke.py: {time.perf_counter() - _START:.1f} s, the show '
           f'phase {shown["seconds"]:.1f} s, the parallel phase '
-          f'{paralleled["seconds"]:.1f} s ({card})', flush=True)
+          f'{paralleled["seconds"]:.1f} s, the drift phase '
+          f'{drifted["seconds"]:.1f} s ({card})', flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

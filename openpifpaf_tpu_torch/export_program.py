@@ -40,6 +40,7 @@ import sys
 import time
 
 import torch
+from torch.fx.experimental import _config as fx_config
 
 from . import decoder, logger, models
 from .decoder.cifcaf import CifCaf
@@ -118,20 +119,27 @@ def export_forward(model, input_hw, *, batch_size: int = 1,
               else model.served_forward())
     tracking = isinstance(model, TrackingModel)
     dynamic_shapes = None
+    size_oblivious = False
     if dynamic_batch:
-        # an example of 2 images (2 pairs): torch.export specializes 1;
-        # a tracking program's pair count stays from 2 on: at 1 pair the
-        # program fails its guard ``(1 + x.size()[0]) // 2 != 1``, which
-        # torch's channels-last stride check (``_prims_common``
-        # ``is_channels_last_contiguous_2d``) adds on the pair slices
+        # an example batch of 2 (2 pairs for a tracking model): torch.export
+        # specializes a size of 1
         if tracking:
-            batch_size, dim = 4, 2 * torch.export.Dim('pairs', min=2)
+            batch_size, dim = 4, 2 * torch.export.Dim('pairs', min=1)
+            # torch's channels-last stride check (``_prims_common``
+            # ``is_channels_last_contiguous_2d``) asks whether each pair
+            # slice ``feats[0::2]``, ``feats[1::2]`` of the fused path's
+            # channels-last features has one image, which would guard the
+            # program to 2 pairs or more; traced size-obliviously, the
+            # question is answered for the general size, and the eager
+            # kernels the program calls give the same fields at 1 pair
+            size_oblivious = True
         else:
             batch_size, dim = 2, torch.export.Dim('batch', min=1)
         dynamic_shapes = ({0: dim},)
     x = torch.zeros((batch_size, 3, *input_hw), dtype=torch.float32,
                     device=model.device)
-    with torch.no_grad():
+    with torch.no_grad(), fx_config.patch(
+            backed_size_oblivious=size_oblivious):
         program = torch.export.export(module, (x,),
                                       dynamic_shapes=dynamic_shapes)
     # the example is zeros (the graph holds the input's spec): not saved

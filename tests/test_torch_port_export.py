@@ -12,7 +12,8 @@ the CoreML refusal and ``count_ops``, on the CPU against the JAX package
   artifact of the same weights, reloaded, within 1e-4 (the f32 bound of
   the port's forward against JAX, ``test_torch_port_models.py``).  The
   narrow model in process, full-width sn2k16 and a tracking model (batch
-  raised to even) through the CLI;
+  raised to even) through the CLI; a narrow tracking program with
+  ``--dynamic-batch`` against eager at 1, 2 and 3 frame pairs;
 - the CoreML CLI refuses;
 - ``count_ops``: GMACs equal to the MACs of the forward's convolutions and
   linear layers counted from their shapes, JAX's number printed beside.
@@ -41,7 +42,7 @@ from openpifpaf_tpu_torch.ops import pair_chain as pc
 from openpifpaf_tpu_torch.plugins.coco.cocokp import CocoKp
 from openpifpaf_tpu_torch.plugins.posetrack import ToyKpSt
 
-from test_torch_port_models import flax_narrow, port_narrow
+from test_torch_port_models import NARROW, flax_narrow, port_narrow
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HW = (33, 33)
@@ -226,6 +227,43 @@ def test_program_equals_eager_and_jax(tmp_path, dynamic):
         for g, w in zip(outs[batch], want):
             assert g.shape == w.shape
             assert np.abs(g.numpy() - np.asarray(w)).max() <= JAX_F32_TOL
+
+
+def narrow_tracking():
+    """A narrow tracking model (CIF, CAF, TCAF) seeded by torch, its
+    BatchNorm statistics away from the identity."""
+    metas = ToyKpSt().head_metas
+    for m in metas:
+        m.base_stride = 16
+    shell = models.TrackingShell(
+        models.ShuffleNetV2K(*NARROW),
+        [models.CompositeField4(m, c) for m, c in zip(metas, (64, 64, 128))],
+        (False, False, True))
+    models.init_weights(shell, torch.Generator().manual_seed(5))
+    generator = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for m in shell.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.3, generator=generator)
+                m.running_var.uniform_(0.5, 2.0, generator=generator)
+    return models.TrackingModel(shell, metas, base_stride=16,
+                                device=torch.device('cpu'), bf16=False)
+
+
+def test_tracking_program_from_one_pair(tmp_path):
+    """A tracking program exported with ``--dynamic-batch`` takes 1, 2
+    and 3 frame pairs (a stream calls it with one), each equal to eager
+    ``Model.__call__``: CIF and CAF per frame, TCAF per pair."""
+    torch.set_num_threads(1)
+    model = narrow_tracking()
+    path = str(tmp_path / 'tracking.pt2')
+    torch.export.save(export_program.export_forward(
+        model, HW, dynamic_batch=True), path)
+    program = export_program.load_exported(path)
+    assert chain_calls(program) == len(model.inference_plan().chains) == 1
+    outs = hold_to_eager(program, model, (2, 4, 6))
+    for frames, fields in outs.items():
+        assert [f.shape[0] for f in fields] == [frames, frames, frames // 2]
 
 
 @pytest.mark.parametrize('device', [['--device', 'cpu'], []])

@@ -108,7 +108,8 @@ def test_port_sources_found():
                  'parallel/scaling.py', 'benchmark_scaling.py',
                  'benchmark.py', 'configurable.py', 'plugin.py',
                  'datasets/torch_dataset.py', 'jpeg.py', 'jpeg_plain.py',
-                 'host_library.py'):
+                 'host_library.py', 'ops/sequential_oracle.py', 'drift.py',
+                 'drift_report.py', 'trained_drift.py'):
         assert os.path.join(REPO, 'openpifpaf_tpu_torch', name) in files
     assert len(files) > 20
 
@@ -200,6 +201,9 @@ def test_import_loads_no_jax_and_builds_nothing():
         'openpifpaf_tpu_torch.benchmark, openpifpaf_tpu_torch.configurable, '
         'openpifpaf_tpu_torch.plugin, '
         'openpifpaf_tpu_torch.datasets.torch_dataset, '
+        'openpifpaf_tpu_torch.ops.sequential_oracle, '
+        'openpifpaf_tpu_torch.drift, openpifpaf_tpu_torch.drift_report, '
+        'openpifpaf_tpu_torch.trained_drift, '
         'openpifpaf_tpu_torch.encoder.native as native, '
         'openpifpaf_tpu_torch.kernels as k\n'
         'import openpifpaf_tpu_torch.plugin as p; p.register()\n'
@@ -331,6 +335,13 @@ def test_entry_points_default_to_the_card():
     from openpifpaf_tpu_torch import predict
     with pytest.raises(RuntimeError, match='CUDA'):
         predict.main(['x.png', '--checkpoint=missing.npz', '-q'])
+    from openpifpaf_tpu_torch import drift, drift_report, trained_drift
+    with pytest.raises(RuntimeError, match='CUDA'):
+        drift.Harness()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        drift_report.main(['--scenes', '1', '--out', os.devnull])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        trained_drift.main(['--checkpoint', 'missing.npz'])
 
 
 def test_transfer_and_head_options_default_to_the_card(tmp_path):
