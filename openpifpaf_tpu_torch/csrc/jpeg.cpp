@@ -23,8 +23,11 @@
 // jpeg_quality_scaling with baseline forced, and the standard Huffman
 // tables.  A one-channel image gets one component.
 //
-// Plain C interface (ctypes): jpeg_info, jpeg_decode, jpeg_encode; each
-// returns a negative value and writes a message on failure.
+// Plain C interface (ctypes): jpeg_info, jpeg_decode (with a colour mode:
+// the file's, the components as they are, or YCbCr, as libtiff reads
+// JPEG-in-TIFF; or the raw components repeated over their blocks, as it
+// reads old-style JPEG), jpeg_encode; each returns a negative value and
+// writes a message on failure.
 
 #include <algorithm>
 #include <cstdint>
@@ -223,7 +226,14 @@ class Decoder {
   int height() const { return height_; }
   int components() const { return int(comps_.size()); }
 
-  void decode(u8 *out) {
+  // `colour`: 0 as the file says, 1 the components as they are (libjpeg's
+  // JCS_UNKNOWN in and out, as libtiff reads JPEG-in-TIFF other than
+  // YCbCr), 2 YCbCr -> RGB whatever the markers say (libtiff's
+  // JPEGCOLORMODE_RGB for photometric YCbCr), 3 the components as they
+  // are, each downsampled one repeated over its block (libtiff's old-style
+  // JPEG, raw data, read through its RGBA interface)
+  void decode(u8 *out, int colour = 0) {
+    colour_ = colour;
     for (;;) {
       int m = next_marker();
       if (m == 0xD9) break;
@@ -245,7 +255,7 @@ class Decoder {
   Huffman dc_[4], ac_[4];
   int restart_interval_ = 0;
   bool jfif_ = false, adobe_ = false;
-  int adobe_transform_ = -1;
+  int adobe_transform_ = -1, colour_ = 0;
   bool frame_ = false, progressive_ = false, scanned_ = false;
   int width_ = 0, height_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
   std::vector<Component> comps_;
@@ -720,7 +730,10 @@ class Decoder {
 
   // ---------------------------------------------------------------- output
   // one component's samples at full size (width_ x height_)
-  std::vector<u8> plane(const Component &k) const {
+  // one component at full size: fancy upsampling as libjpeg's, or with
+  // `replicate` each sample repeated over its block (libtiff's RGBA
+  // interface on raw, downsampled data)
+  std::vector<u8> plane(const Component &k, bool replicate = false) const {
     const long pw = long(k.bw) * 8, ph = long(k.bh) * 8;
     std::vector<u8> s(size_t(pw * ph));
     int32_t in[64];
@@ -740,6 +753,10 @@ class Decoder {
     if (hr == 1 && vr == 1) {
       for (int y = 0; y < height_; ++y)
         std::memcpy(&out[size_t(y) * width_], &s[size_t(y) * pw], width_);
+      return out;
+    }
+    if (replicate) {
+      hr_vr_replicate(s, pw, hr, vr, out);
       return out;
     }
     // each output row y of the h2v* methods: its nearest input row and
@@ -789,14 +806,29 @@ class Decoder {
       return out;
     }
     // replication (int_upsample, h2v1_upsample, h2v2_upsample)
+    hr_vr_replicate(s, pw, hr, vr, out);
+    return out;
+  }
+
+  void hr_vr_replicate(const std::vector<u8> &s, long pw, int hr, int vr,
+                       std::vector<u8> &out) const {
     for (int y = 0; y < height_; ++y)
       for (int x = 0; x < width_; ++x)
         out[size_t(y) * width_ + x] = s[size_t(y / vr) * pw + x / hr];
-    return out;
   }
 
   void output(u8 *out) const {
     const size_t npix = size_t(width_) * height_;
+    if (colour_ == 1 || colour_ == 3) {
+      const size_t nc = comps_.size();
+      for (size_t c = 0; c < nc; ++c) {
+        if (colour_ == 1 && (comps_[c].h != comps_[0].h || comps_[c].v != comps_[0].v))
+          fail("JPEG-in-TIFF with subsampled components outside YCbCr is not supported");
+        std::vector<u8> p = plane(comps_[c], colour_ == 3);
+        for (size_t i = 0; i < npix; ++i) out[nc * i + c] = p[i];
+      }
+      return;
+    }
     if (comps_.size() == 1) {
       std::vector<u8> g = plane(comps_[0]);
       for (size_t i = 0; i < npix; ++i) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = g[i];
@@ -805,7 +837,9 @@ class Decoder {
     std::vector<u8> p0 = plane(comps_[0]), p1 = plane(comps_[1]), p2 = plane(comps_[2]);
     if (comps_.size() == 4) return output_cmyk(out, p0, p1, p2, plane(comps_[3]));
     bool rgb;
-    if (jfif_) {
+    if (colour_ == 2) {
+      rgb = false;
+    } else if (jfif_) {
       rgb = false;
     } else if (adobe_) {
       rgb = adobe_transform_ == 0;
@@ -1263,12 +1297,14 @@ int jpeg_info(const u8 *data, long size, long *dims, char *err, long errcap) {
   }
 }
 
-// decode into `out`, (height, width, 3) uint8 RGB; 0, or -1 with `err`
-int jpeg_decode(const u8 *data, long size, u8 *out, char *err, long errcap) {
+// decode into `out`, (height, width, 3) uint8 RGB, or (height, width,
+// components) for `colour` 1 (see Decoder::decode); 0, or -1 with `err`
+int jpeg_decode(const u8 *data, long size, u8 *out, int colour, char *err,
+                long errcap) {
   try {
     Decoder d(data, size_t(size));
     d.read_header();
-    d.decode(out);
+    d.decode(out, colour);
     return 0;
   } catch (const std::exception &e) {
     message(err, errcap, e.what());

@@ -40,23 +40,24 @@ def host_cpu() -> bytes:
                               if line.startswith((b'model name', b'flags'))}))
 
 
-def library_path(source: Path, stem: str) -> Path:
+def library_path(source: Path, stem: str, flags: tuple = ()) -> Path:
     digest = hashlib.sha1(b'\0'.join([
         source.read_bytes(), compiler().encode(),
-        ' '.join(CXX_FLAGS).encode(), host_cpu()]))
+        ' '.join([*CXX_FLAGS, *flags]).encode(), host_cpu()]))
     return BUILD_DIR / f'lib{stem}_{digest.hexdigest()[:12]}.so'
 
 
-def build(source: Path, stem: str, what: str, hint: str = '') -> Path:
-    """Compile ``source`` unless it is built; raises ``RuntimeError``
-    naming ``what`` (and adding ``hint``) with the compiler's output when
-    it fails."""
-    out = library_path(source, stem)
+def build(source: Path, stem: str, what: str, hint: str = '',
+          flags: tuple = ()) -> Path:
+    """Compile ``source`` with ``CXX_FLAGS`` and the library's own
+    ``flags`` unless it is built; raises ``RuntimeError`` naming ``what``
+    (and adding ``hint``) with the compiler's output when it fails."""
+    out = library_path(source, stem, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    command = [compiler(), *CXX_FLAGS, '-o', str(tmp), str(source)]
+    command = [compiler(), *CXX_FLAGS, *flags, '-o', str(tmp), str(source)]
     try:
         result = subprocess.run(command, capture_output=True, text=True,
                                 timeout=300, check=False)

@@ -19,7 +19,8 @@ its name, and raises a ``ValueError`` naming any other format:
   files, ``BI_BITFIELDS`` in the layouts Pillow reads, RLE8 and RLE4;
   embedded JPEG or PNG raise;
 - JPEG: ``jpeg.decode`` (``csrc/jpeg.cpp``), CMYK and YCCK included;
-- WebP, GIF, TIFF and PNM: ``image_formats``.
+- WebP, GIF, TIFF, PNM and JPEG 2000: ``image_formats``;
+- ICO, CUR, TGA, QOI, PSD, SGI and PCX: ``raster_formats``.
 
 ``write_png`` writes 8-bit PNG files with a chosen row filter (the tests
 read them back, and ``chip_smoke.py`` writes its video frames with it).
@@ -32,7 +33,7 @@ import zlib
 
 import numpy as np
 
-from . import image_formats, jpeg
+from . import image_formats, jpeg, raster_formats
 
 SIGNATURE = b'\x89PNG\r\n\x1a\n'
 # PNG colour type -> channels
@@ -371,23 +372,25 @@ def read_bmp(data: bytes) -> np.ndarray:
 
 # other formats PIL reads, by their leading bytes, for the refusal
 OTHER_SIGNATURES = (
-    (0, b'\x00\x00\x01\x00', 'an ICO icon'),
-    (0, b'\x00\x00\x02\x00', 'a CUR cursor'),
-    (0, b'\x00\x00\x00\x0cjP  \r\n\x87\n', 'a JPEG 2000 file'),
-    (0, b'\xff\x4f\xff\x51', 'a JPEG 2000 codestream'),
     (4, b'ftypavif', 'an AVIF file'), (4, b'ftypavis', 'an AVIF file'),
     (4, b'ftypheic', 'a HEIF file'), (4, b'ftypmif1', 'a HEIF file'),
-    (0, b'8BPS', 'a Photoshop (PSD) file'), (0, b'DDS ', 'a DDS file'),
-    (0, b'qoif', 'a QOI file'), (0, b'icns', 'an ICNS icon'),
+    (0, b'DDS ', 'a DDS file'), (0, b'icns', 'an ICNS icon'),
     (0, b'\x76\x2f\x31\x01', 'an OpenEXR file'),
-    (0, b'%PDF', 'a PDF document'), (0, b'\x0a\x05', 'a PCX file'))
+    (0, b'%PDF', 'a PDF document'))
+# the formats with a signature that PIL's Image.open tries after the ones
+# it preloads (BMP, DIB, GIF, JPEG, PPM, PNG), in its registry's order
+SIGNED = (('cur', b'\0\0\2\0'), ('jpeg2000', image_formats.J2K_SIGNATURE),
+          ('jpeg2000', image_formats.JP2_SIGNATURE), ('ico', b'\0\0\1\0'),
+          ('psd', b'8BPS'), ('qoi', b'qoif'), ('sgi', b'\x01\xda'))
 
 
 def sniff(data: bytes) -> str:
     """The image format of ``data`` by its leading bytes, as PIL's
     ``Image.open`` picks its plugin: 'jpeg', 'png', 'bmp', 'gif', 'webp',
-    'tiff' or 'pnm'; raises a ``ValueError`` naming what the bytes look
-    like otherwise."""
+    'tiff', 'pnm', 'jpeg2000', 'ico', 'cur', 'psd', 'qoi', 'sgi', 'pcx'
+    or, for bytes that no signature claims but that make a valid Targa
+    header, 'tga' (PIL tries TGA last but for WebP and a few others);
+    raises a ``ValueError`` naming what the bytes look like otherwise."""
     if data[:3] == b'\xff\xd8\xff':
         return 'jpeg'
     if data.startswith(SIGNATURE):
@@ -402,9 +405,16 @@ def sniff(data: bytes) -> str:
         return 'tiff'
     if data[:1] == b'P' and data[1:2] and data[1:2] in b'0123456fy':
         return 'pnm'
+    for kind, magic in SIGNED:
+        if data.startswith(magic):
+            return kind
+    if raster_formats.pcx_accepts(data):
+        return 'pcx'
     for at, magic, name in OTHER_SIGNATURES:
         if data[at:at + len(magic)] == magic:
             raise ValueError(f'no reader for {name}')
+    if raster_formats.tga_header(data) is not None:
+        return 'tga'
     if not data:
         raise ValueError('no reader for an empty file')
     raise ValueError('no reader for an unknown image format (leading bytes '
@@ -415,15 +425,27 @@ READERS = {
     'png': lambda data: to_rgb(read_png(data)), 'bmp': read_bmp,
     'jpeg': jpeg.decode, 'webp': image_formats.webp_decode,
     'gif': image_formats.read_gif, 'tiff': image_formats.read_tiff,
-    'pnm': image_formats.read_pnm}
+    'pnm': image_formats.read_pnm, 'jpeg2000': image_formats.read_jpeg2000,
+    'ico': raster_formats.read_ico, 'cur': raster_formats.read_cur,
+    'tga': raster_formats.read_tga, 'qoi': raster_formats.read_qoi,
+    'psd': raster_formats.read_psd, 'sgi': raster_formats.read_sgi,
+    'pcx': raster_formats.read_pcx}
 
 
 def decode(data: bytes) -> np.ndarray:
     """Image file bytes -> (H, W, 3) uint8 RGB, the format by content;
-    corrupt or truncated data raises a ``ValueError`` too."""
+    corrupt or truncated data raises a ``ValueError`` too.  Bytes whose
+    signature claims a format but whose header Pillow then gives up on go
+    on to TGA, as in Pillow, when they make a TGA header."""
     kind = sniff(data)
     try:
-        return READERS[kind](data)
+        try:
+            return READERS[kind](data)
+        except raster_formats.Fallthrough:
+            if raster_formats.tga_header(data) is None:
+                raise
+            kind = 'tga'
+            return READERS[kind](data)
     except (struct.error, IndexError, zlib.error) as e:
         raise ValueError(f'{kind.upper()}: corrupt or truncated data ({e})'
                          ) from e

@@ -54,7 +54,8 @@ def library() -> ctypes.CDLL:
         lib.jpeg_info.argtypes = [u8, long_, ctypes.POINTER(long_),
                                   ctypes.c_char_p, long_]
         lib.jpeg_info.restype = ctypes.c_int
-        lib.jpeg_decode.argtypes = [u8, long_, u8, ctypes.c_char_p, long_]
+        lib.jpeg_decode.argtypes = [u8, long_, u8, ctypes.c_int,
+                                    ctypes.c_char_p, long_]
         lib.jpeg_decode.restype = ctypes.c_int
         lib.jpeg_encode.argtypes = [u8, long_, long_, ctypes.c_int,
                                     ctypes.c_int, u8, long_, ctypes.c_char_p,
@@ -68,8 +69,18 @@ def _ptr(array: np.ndarray):
     return array.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
 
 
-def decode(data: bytes) -> np.ndarray:
-    """JPEG bytes -> (H, W, 3) uint8 RGB."""
+# ``decode``'s colour handling: as the file's markers say; the components
+# as they are; YCbCr -> RGB whatever the markers say; the components as
+# they are, each downsampled one repeated over its block
+COLOURS = ('file', 'components', 'ycbcr', 'blocks')
+
+
+def decode(data: bytes, colour: str = 'file') -> np.ndarray:
+    """JPEG bytes -> (H, W, 3) uint8 RGB, or (H, W, components) for
+    ``colour='components'`` (libjpeg's ``JCS_UNKNOWN``, as libtiff reads
+    JPEG-in-TIFF other than YCbCr; ``'ycbcr'`` is its
+    ``JPEGCOLORMODE_RGB``) and ``'blocks'`` (libtiff's old-style JPEG,
+    raw data through its RGBA interface)."""
     global DECODES  # pylint: disable=global-statement
     lib = library()
     buf = np.frombuffer(bytes(data), np.uint8)
@@ -77,9 +88,11 @@ def decode(data: bytes) -> np.ndarray:
     err = ctypes.create_string_buffer(_ERR)
     if lib.jpeg_info(_ptr(buf), buf.size, dims, err, _ERR) != 0:
         raise ValueError(err.value.decode())
-    out = np.empty((dims[0], dims[1], 3), np.uint8)
+    channels = dims[2] if colour in ('components', 'blocks') else 3
+    out = np.empty((dims[0], dims[1], channels), np.uint8)
     DECODES += 1
-    if lib.jpeg_decode(_ptr(buf), buf.size, _ptr(out), err, _ERR) != 0:
+    if lib.jpeg_decode(_ptr(buf), buf.size, _ptr(out), COLOURS.index(colour),
+                       err, _ERR) != 0:
         raise ValueError(err.value.decode())
     return out
 

@@ -408,6 +408,9 @@ def test_tiff_written_here():
     ('float', 'float samples'), ('16-bit', '16-bit samples'),
     ('planar', 'planar configuration 2'), ('bigtiff', 'BigTIFF')])
 def test_tiff_refusals(kind, match):
+    """What the port once refused (``match`` names it) it now reads as PIL
+    does."""
+    del match
     image = seeded(17, 9, 0)
     if kind == 'jpeg':
         data = pil_bytes(image, 'TIFF', compression='jpeg')
@@ -418,14 +421,13 @@ def test_tiff_refusals(kind, match):
     elif kind == '16-bit':
         data = pil_bytes(PIL.Image.fromarray(
             image[:, :, 0].astype(np.uint16) * 200), 'TIFF')
-    elif kind == 'planar':
-        data = tiff_file(image, 2).replace(
+    elif kind == 'planar':   # too few strips for three planes: PIL reads
+        data = tiff_file(image, 2).replace(   # what there is, as the port
             struct.pack('<HHIHH', 284, 3, 1, 1, 0),
             struct.pack('<HHIHH', 284, 3, 1, 2, 0))
     else:
         data = pil_bytes(image, 'TIFF', big_tiff=True)
-    with pytest.raises(ValueError, match=match):
-        image_io.decode(data)
+    assert_as_pil(data)
 
 
 # ------------------------------------------------------------------- PNM
